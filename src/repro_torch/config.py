@@ -1,0 +1,144 @@
+"""Architecture configs and their registry (a copy of ``repro/config.py``).
+
+Every architecture in :mod:`repro_torch.configs` registers an
+:class:`ArchConfig` here.  The TPU hardware constants of the JAX package are
+left out: no speed number of that chip applies to the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """A transformer-family architecture (exact public config)."""
+
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_period: int = 1             # 1 => every FFN is MoE; jamba uses 2
+    # --- attention pattern ---
+    sliding_window: int = 0         # >0 => local attention window for "local" layers
+    local_global_pattern: int = 0   # N>0 => N local layers then 1 global, repeated
+    qk_norm: bool = False
+    # --- norm / act ---
+    norm_type: str = "rmsnorm"      # rmsnorm | layernorm | nonparam_ln
+    mlp_gated: bool = True          # SwiGLU-style (3 mats) vs plain (2 mats)
+    act: str = "silu"               # silu | gelu | relu2
+    # --- positions ---
+    pos_type: str = "rope"          # rope | mrope | learned | none
+    rope_theta: float = 1e4
+    # --- ssm / hybrid ---
+    ssm_type: str = ""              # "rwkv6" | "mamba" (hybrid)
+    attn_period: int = 0            # jamba: one attn layer per period of N layers
+    ssm_d_state: int = 16           # mamba state dim
+    ssm_d_conv: int = 4             # mamba conv width
+    ssm_expand: int = 2             # mamba inner expansion
+    rwkv_head_size: int = 64
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    encoder_frames: int = 0         # stub frontend: precomputed frames fed directly
+    # --- vlm (qwen2-vl) ---
+    mrope_sections: Tuple[int, ...] = ()   # head_dim split across (t, h, w)
+    image_prefix_frac: float = 0.0         # fraction of seq that is patch embeds
+    # --- misc ---
+    tie_embeddings: bool = False
+    vocab_pad_to: int = 256
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    # -- derived -----------------------------------------------------------
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return (self.vocab_size + p - 1) // p * p
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer kind string: 'attn' | 'local_attn' | 'mamba' | 'rwkv6'."""
+        kinds = []
+        for i in range(self.num_layers):
+            if self.ssm_type == "rwkv6":
+                kinds.append("rwkv6")
+            elif self.ssm_type == "mamba" and self.attn_period > 0:
+                kinds.append("attn" if i % self.attn_period == 0 else "mamba")
+            elif self.local_global_pattern > 0:
+                p = self.local_global_pattern
+                kinds.append("attn" if (i % (p + 1)) == p else "local_attn")
+            else:
+                kinds.append("attn")
+        return tuple(kinds)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    if cfg.name in _REGISTRY:
+        raise ValueError(f"duplicate arch {cfg.name}")
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ArchConfig:
+    import repro_torch.configs  # noqa: F401  (populates registry)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_archs() -> Tuple[str, ...]:
+    import repro_torch.configs  # noqa: F401
+    return tuple(sorted(_REGISTRY))
+
+
+def reduced(cfg: ArchConfig, *, layers: Optional[int] = None) -> ArchConfig:
+    """Tiny same-family config for CPU smoke tests."""
+    kw = dict(
+        num_layers=layers if layers is not None else min(cfg.num_layers, 2),
+        d_model=64,
+        num_heads=max(2, min(cfg.num_heads, 4)),
+        num_kv_heads=1 if cfg.num_kv_heads < cfg.num_heads else max(2, min(cfg.num_heads, 4)),
+        head_dim=16,
+        d_ff=96,
+        vocab_size=256,
+        vocab_pad_to=32,
+    )
+    if cfg.is_moe:
+        kw.update(num_experts=4, experts_per_token=2)
+    if cfg.encoder_layers:
+        kw.update(encoder_layers=2, encoder_frames=8)
+    if cfg.ssm_type == "rwkv6":
+        kw.update(rwkv_head_size=16, num_heads=4, head_dim=16)
+    if cfg.attn_period:
+        kw.update(num_layers=max(cfg.attn_period, 4), attn_period=4)
+    if cfg.local_global_pattern:
+        kw.update(num_layers=6, local_global_pattern=2, sliding_window=8)
+    if cfg.mrope_sections:
+        kw.update(mrope_sections=(4, 2, 2))
+    return dataclasses.replace(cfg, **kw)

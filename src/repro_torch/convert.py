@@ -1,0 +1,95 @@
+"""Parameters for the port: converted from the JAX init, or drawn anew.
+
+:func:`params_from_numpy` takes the JAX ``transformer.init_params`` pytree
+as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
+port's dict: the same keys, the same ``(in, out)`` weight orientation (no
+permutation: RoPE is split-half in both packages), stacked ``blocks``
+leaves kept ``(L, ...)``.
+
+:func:`init_params` draws a fresh dict with the shapes and scales of the
+JAX init (``transformer.init_params``, ``layers.init_dense`` /
+``init_embedding`` / ``init_norm``) from a ``torch.Generator``.  The draws
+are not JAX's: parity tests convert JAX params instead.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import ArchConfig
+from repro_torch.models import layers
+from repro_torch.models.transformer import check_ported
+
+# Leaves the JAX init keeps in float32 whatever the model dtype (norm
+# parameters); every other floating leaf is in the model dtype.
+_F32_LEAVES = ("scale", "bias")
+
+
+def _to_tensor(x: np.ndarray, key: str, device, dtype) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":       # ml_dtypes: torch cannot take it
+        t = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(x))        # a writable copy
+    if dtype is not None and t.is_floating_point() and key not in _F32_LEAVES:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree: Dict, device=None,
+                      dtype: Optional[torch.dtype] = None) -> Dict:
+    """JAX pytree of numpy arrays -> the port's dict of tensors on
+    ``device`` (``cuda`` unless asked otherwise).  ``dtype``, when given,
+    casts the model-dtype leaves (the norm parameters stay float32, as in
+    the JAX init); ``None`` keeps every leaf's own dtype."""
+    dev = resolve_device(device)
+
+    def conv(node, key=""):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        return _to_tensor(node, key, dev, dtype)
+
+    return conv(tree)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device=None) -> Dict:
+    """Fresh parameters for ``cfg`` from ``generator``: normal(0, 1) draws
+    scaled by ``1/sqrt(in)`` for dense weights and by 0.02 for the
+    embedding, zeros for the RMSNorm scales, in the JAX init's order of
+    shapes.  Drawn in float32 on the generator's device, then cast to the
+    model dtype on ``device``."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    L, d = cfg.num_layers, cfg.d_model
+
+    def normal(*shape, scale):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * scale).to(device=dev, dtype=dtype)
+
+    def dense(in_dim, out_dim):
+        return normal(L, in_dim, out_dim, scale=in_dim ** -0.5)
+
+    def norm():
+        return {k: v.expand(L, *v.shape).clone()
+                for k, v in layers.init_norm(cfg, device=dev).items()}
+
+    params = {"embed": normal(cfg.padded_vocab, d, scale=0.02),
+              "final_norm": layers.init_norm(cfg, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(d, cfg.padded_vocab, scale=d ** -0.5)
+    attn = {"norm": norm(), "wq": dense(d, cfg.q_dim),
+            "wk": dense(d, cfg.kv_dim), "wv": dense(d, cfg.kv_dim),
+            "wo": dense(cfg.q_dim, d)}
+    if cfg.mlp_gated:
+        mlp = {"wi_gate": dense(d, cfg.d_ff), "wi_up": dense(d, cfg.d_ff),
+               "wo": dense(cfg.d_ff, d)}
+    else:
+        mlp = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d)}
+    params["blocks"] = {"attn": attn, "ffn": {"norm": norm(), "mlp": mlp}}
+    return params

@@ -1,0 +1,149 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into
+``build/repro_torch/<name>-<hash>.so`` under the checkout's root (``build/``
+is git-ignored), with a plain C interface: no PyTorch headers, so a build
+takes seconds.  The hash covers the sources and flags, so an edited kernel
+is rebuilt and a current one is loaded as it is.  :func:`build_all` starts
+one ``nvcc`` per source at once.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not 0 (a launch the card refused never
+runs, and a later ``synchronize`` would not report it).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Sequence, Tuple
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("flash_attention", "flash_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C signatures of the entry points (see the extern "C" blocks in csrc/)
+SIGNATURES: Dict[str, Tuple[str, list]] = {
+    "flash_attention": ("repro_flash_attention",
+                        [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P]),
+    "flash_decode": ("repro_flash_decode",
+                     [_P] * 6 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P]),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+ptxas_log: Dict[str, str] = {}     # nvcc's -Xptxas -v report per kernel
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME   # torch's own lookup
+    if CUDA_HOME:
+        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (on PATH or under CUDA_HOME)")
+
+
+def _target(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        if src.suffix == ".cuh" or src.stem == name:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    ptxas_log[name] = log
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)       # atomic: a reader never sees half a library
+
+
+def build_all(names: Sequence[str] = SOURCES) -> None:
+    """Compile every kernel that is not built yet, one nvcc each, in
+    parallel; waits for all of them."""
+    started = {n: _start(n) for n in names}
+    errors = []
+    for n, s in started.items():
+        if s is not None:
+            try:
+                _finish(n, s)
+            except RuntimeError as e:
+                errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if need be."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def entry(name: str):
+    """The C entry point of kernel ``name`` (argtypes already declared)."""
+    return getattr(load(name), SIGNATURES[name][0])
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def check_inputs(name: str, *tensors) -> None:
+    """Raise on anything the attention kernels do not take: tensors off one
+    CUDA device, a dtype other than float32/bfloat16 (one for all), a head
+    dim other than 32/64/128, a strided last dim, or row starts that are
+    not 16-byte aligned (K rows are read with 16-byte loads)."""
+    import torch
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"{name}: kernel inputs must be CUDA tensors")
+    if t0.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {t0.dtype} (want float32|bfloat16)")
+    if t0.shape[-1] not in (32, 64, 128):
+        raise ValueError(f"{name}: head dim {t0.shape[-1]} (want 32|64|128)")
+    for t in tensors:
+        if t.device != t0.device or t.dtype != t0.dtype:
+            raise ValueError(f"{name}: inputs differ in device or dtype")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dim must be contiguous")
+        esz = t.element_size()
+        if t.data_ptr() % 16 or any(s * esz % 16 for s in t.stride()[:-1]):
+            raise ValueError(f"{name}: rows must start 16-byte aligned")

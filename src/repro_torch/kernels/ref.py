@@ -1,0 +1,104 @@
+"""Plain PyTorch versions of the CUDA kernels (ports of the oracles in
+``repro/kernels/ref.py``).
+
+Each kernel wrapper runs its plain version when handed CPU tensors, and the
+GPU smoke run compares every kernel with it on the card.  All arithmetic is
+float32 whatever the input type; outputs come back in q's dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# flash attention (layout: q (B,H,Sq,D); k,v (B,Hk,Sk,D))
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal=True, window=0, softmax_scale=None,
+                    kv_len=None):
+    B, H, Sq, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    kr = k.repeat_interleave(G, dim=1).float()
+    vr = v.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    pos_q = torch.arange(Sq, device=q.device)[:, None]
+    pos_k = torch.arange(Sk, device=q.device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= pos_k <= pos_q
+    if window > 0:
+        m &= pos_k > pos_q - window
+    if kv_len is not None:
+        m &= pos_k < kv_len
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode attention (layout: q (B,Sq,H,D); caches (B,S,Hk,D)): per-slot
+# live prefixes, sliding-window band or ring wraparound masking.  Draft row
+# ``j`` attends with effective length ``lengths + j``; rows ``>= q_lens``
+# and empty slots (len == 0) produce exactly-zero outputs.
+# ---------------------------------------------------------------------------
+
+def _decode_mask(lengths, S: int, window: int, ring: bool):
+    """(B, S) bool: which cache rows a slot's single query may attend."""
+    pos = torch.arange(S, device=lengths.device)[None, :]
+    lengths = lengths[:, None]
+    if ring and window > 0:
+        valid = pos < torch.clamp(lengths, max=S)
+        valid &= torch.remainder(lengths - 1 - pos, S) < window
+    else:
+        valid = pos < lengths
+        if window > 0:
+            valid &= pos > lengths - 1 - window
+    return valid
+
+
+def _decode_mask_rows(lengths, q_lens, Sq: int, S: int, window: int,
+                      ring: bool):
+    """(B, Sq, S) bool: rows draft row ``j`` of each slot may attend.
+
+    Row ``j``'s effective length is ``lengths + j``; rows ``>= q_lens``
+    (speculation padding) attend nothing.  ``torch.remainder`` is the floor
+    modulo of ``jnp.mod``: the ring offset ``eff - 1 - pos`` can be
+    negative."""
+    dev = lengths.device
+    pos = torch.arange(S, device=dev)[None, None, :]
+    rows = torch.arange(Sq, device=dev)[None, :]
+    eff = (lengths[:, None] + rows)[:, :, None]
+    if ring and window > 0:
+        valid = pos < torch.clamp(eff, max=S)
+        valid &= torch.remainder(eff - 1 - pos, S) < window
+    else:
+        valid = pos < eff
+        if window > 0:
+            valid &= pos > eff - 1 - window
+    valid &= (rows < q_lens[:, None])[:, :, None]
+    return valid
+
+
+def decode_attention(q, k, v, lengths, *, window=0, ring=False,
+                     softmax_scale=None, q_lens=None):
+    B, Sq, H, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    lengths = lengths.to(torch.int64)
+    if q_lens is None:
+        q_lens = torch.full((B,), Sq, dtype=torch.int64, device=q.device)
+    qg = q.reshape(B, Sq, Hk, G, D).float()
+    s = torch.einsum("bjhgd,bkhd->bhjgk", qg, k.float()) * scale
+    valid = _decode_mask_rows(lengths, q_lens.to(torch.int64), Sq, S,
+                              window, ring)[:, None, :, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid, p, torch.zeros_like(p))           # len==0 -> 0
+    out = torch.einsum("bhjgk,bkhd->bjhgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)

@@ -1,0 +1,106 @@
+"""Serving launcher: the continuous-batching engine under simulated recsys
+load (port of ``repro/launch/serve.py``, engine mode, dense greedy slice).
+
+Runs on the GPU unless ``--device cpu``; reports throughput and p50/p95/p99
+TTFT / per-token latency against SLO tiers:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --slots 8 --max-len 512 \\
+      --attn-impl flash --decode-impl flash
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+``--attn-impl flash`` runs prefill attention through the CUDA flash-attention
+kernel (the JAX package's ``pallas`` value); ``--decode-impl flash`` runs
+every decode step through the CUDA flash-decode kernel.  Weights are random,
+drawn from ``--seed``.
+"""
+import argparse
+import dataclasses
+import json
+
+import torch
+
+from repro_torch import convert, resolve_device
+from repro_torch.cache_layout import CacheLayout
+from repro_torch.config import get_arch, list_archs, reduced
+from repro_torch.models.transformer import ModelCtx
+from repro_torch.serving import (EngineConfig, ServingEngine, TrafficConfig,
+                                 generate, make_backend)
+from repro_torch.serving.metrics import format_report
+
+
+def run_engine(args) -> int:
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = convert.init_params(cfg, gen, device)
+
+    defaults = TrafficConfig()
+    tcfg = TrafficConfig(
+        n_requests=args.requests, rate=args.rate, process=args.process,
+        prompt_max=max(defaults.prompt_min, min(48, args.max_len // 2)),
+        new_tokens_max=max(defaults.new_tokens_min,
+                           min(24, args.max_len // 4)),
+        vocab_size=cfg.vocab_size, seed=args.seed)
+    requests = generate(tcfg)
+
+    layout = CacheLayout(impl=args.decode_impl)
+    ecfg = EngineConfig(n_slots=args.slots, max_len=args.max_len,
+                        queue_capacity=args.queue_capacity,
+                        refill=args.refill, sample_seed=args.seed,
+                        layout=layout)
+    ctx = ModelCtx(attn_impl=args.attn_impl, attn_chunk=8)
+
+    def mk_server():
+        backend = make_backend(cfg, params, ctx, layout=layout,
+                               device=device)
+        return ServingEngine(backend, ecfg)
+
+    if not args.no_warmup:
+        # first-use costs (kernel builds, CUDA context, cuBLAS handles)
+        # stay outside the measured run, as in a resident server
+        mk_server().run(requests)
+    outputs, records, summary = mk_server().run(requests)
+
+    title = (f"{cfg.name} dense attn={args.attn_impl} "
+             f"decode={args.decode_impl} refill={args.refill} "
+             f"slots={args.slots} {args.process}@{args.rate:g}req/s "
+             f"on {device}")
+    print(format_report(summary, title))
+    if args.json:
+        print(json.dumps(summary, indent=1))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="recllm-base", choices=list_archs())
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda unless asked)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--rate", type=float, default=64.0)
+    ap.add_argument("--process", default="poisson",
+                    choices=("poisson", "bursty"))
+    ap.add_argument("--attn-impl", default="chunked",
+                    choices=("naive", "chunked", "flash"),
+                    help="prefill attention: plain (naive/chunked) or the "
+                         "CUDA flash-attention kernel")
+    ap.add_argument("--decode-impl", default="dense",
+                    choices=("dense", "flash"),
+                    help="decode attention: dense einsum over the padded "
+                         "cache, or the CUDA flash-decode kernel")
+    ap.add_argument("--refill", default="continuous",
+                    choices=("continuous", "static"))
+    ap.add_argument("--queue-capacity", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--json", action="store_true")
+    return run_engine(ap.parse_args(argv))
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

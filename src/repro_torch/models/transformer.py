@@ -1,0 +1,242 @@
+"""The uniform decoder-only stack (port of the dense uniform slice of
+``repro/models/transformer.py``): forward, per-slot prefill and one-token
+decode over a stacked KV cache.
+
+Parameters are a plain dict keyed like the JAX pytree; the per-layer
+leaves under ``params["blocks"]`` stay stacked ``(L, ...)`` and the layers
+run as a Python loop (the JAX ``lax.scan``).
+
+**The KV cache is updated in place.**  JAX writes a new cache array each
+step (``k_cache.at[...].set``); here :func:`attn_decode` and
+:func:`prefill_into_slot` write the new rows into the stacked
+``(L, n_slots, S, Hk, D)`` tensors they were given, and return the same
+tensors.  Only ``cache["len"]`` is a new tensor after a decode step.
+
+This slice covers the dense uniform family (RecLLM): MoE layers, M-RoPE,
+learned positions, qk-norm, the other families, paged caches and chunked
+prefill raise ``NotImplementedError``; they are queued in ``ROADMAP.md``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import ArchConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCtx:
+    """Runtime knobs threaded through the stack (not part of params)."""
+    attn_impl: str = "chunked"       # naive | chunked | flash (CUDA kernel)
+    attn_chunk: int = 1024
+    decode_impl: str = "dense"       # dense | flash (CUDA flash-decode)
+
+
+def family(cfg: ArchConfig) -> str:
+    if cfg.ssm_type == "rwkv6":
+        return "rwkv6"
+    if cfg.ssm_type == "mamba":
+        return "jamba"
+    if cfg.local_global_pattern > 0:
+        return "gemma"
+    if cfg.encoder_layers > 0:
+        return "whisper"
+    return "uniform"
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for every architecture feature this slice does not port."""
+    fam = family(cfg)
+    missing = [what for what, bad in (
+        (f"family {fam!r}", fam != "uniform"),
+        ("MoE layers", cfg.is_moe),
+        (f"pos_type {cfg.pos_type!r}", cfg.pos_type not in ("rope", "none")),
+        ("qk_norm", cfg.qk_norm),
+    ) if bad]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (this slice "
+            "serves the dense uniform family; see ROADMAP.md)")
+
+
+def _layer(blocks: Dict, i: int) -> Dict:
+    """Layer ``i``'s parameter views out of the stacked ``(L, ...)`` tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def _layers(params: Dict, cfg: ArchConfig) -> List[Dict]:
+    return [_layer(params["blocks"], i) for i in range(cfg.num_layers)]
+
+
+# ---------------------------------------------------------------------------
+# Attention and FFN blocks
+# ---------------------------------------------------------------------------
+
+def _qkv(cfg: ArchConfig, p: Dict, h, positions):
+    B, S, _ = h.shape
+    q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = layers.position_embedding(cfg, q, positions)
+    k = layers.position_embedding(cfg, k, positions)
+    return q, k, v
+
+
+def attn_apply(cfg: ArchConfig, p: Dict, x, positions, ctx: ModelCtx,
+               *, return_kv: bool = False):
+    """Full-sequence (prefill) self-attention residual branch."""
+    h = layers.apply_norm(cfg, p["norm"], x)
+    q, k, v = _qkv(cfg, p, h, positions)
+    o = attn_lib.attention(q, k, v, causal=True, impl=ctx.attn_impl,
+                           chunk=ctx.attn_chunk)
+    out = o.reshape(x.shape[0], x.shape[1], cfg.q_dim) @ p["wo"]
+    return out, ((k, v) if return_kv else None)
+
+
+def attn_decode(cfg: ArchConfig, p: Dict, x, position, ctx: ModelCtx,
+                k_cache, v_cache, cache_len):
+    """One-token decode.  x:(B,1,d); caches (B,S,Hk,D) (views of the stacked
+    cache, written in place); cache_len (B,).  Returns the residual branch.
+
+    A slot whose ``cache_len`` is already ``S`` writes nothing: JAX drops an
+    out-of-range scatter, and free slots keep counting up (see
+    :func:`decode_step`)."""
+    B, S = x.shape[0], k_cache.shape[1]
+    h = layers.apply_norm(cfg, p["norm"], x)
+    q, k, v = _qkv(cfg, p, h, position[:, None])
+    rows = torch.arange(B, device=x.device)
+    slot = torch.clamp(cache_len, max=S - 1).long()
+    keep = (cache_len < S)[:, None, None]
+    k_cache[rows, slot] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+                                      k_cache[rows, slot])
+    v_cache[rows, slot] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+                                      v_cache[rows, slot])
+    valid = torch.clamp(cache_len + 1, max=S)
+    o = attn_lib.decode_attention(q, k_cache, v_cache, valid,
+                                  impl=ctx.decode_impl)
+    return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+
+def ffn_apply(cfg: ArchConfig, p: Dict, x):
+    h = layers.apply_norm(cfg, p["norm"], x)
+    return layers.apply_mlp(cfg, p["mlp"], h)
+
+
+# ---------------------------------------------------------------------------
+# Public API: forward / cache / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _zero_aux(device) -> Dict:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": z, "z_loss": z.clone()}
+
+
+def forward_hidden(cfg: ArchConfig, params: Dict, batch: Dict,
+                   ctx: ModelCtx = ModelCtx(), collect_kv: bool = False):
+    """Full-sequence forward up to the final norm: (hidden, aux, kvs).
+
+    ``kvs`` is ``(k, v)`` stacked ``(L, B, S, Hk, D)`` when ``collect_kv``.
+    The JAX package's ``true_len`` argument only steers MoE routing; the
+    dense layers here are causal or per-token, so right-padding never
+    reaches a real position."""
+    check_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = layers.embed_tokens(params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    ks, vs = [], []
+    for blk in _layers(params, cfg):
+        a_out, kv = attn_apply(cfg, blk["attn"], h, positions, ctx,
+                               return_kv=collect_kv)
+        h = h + a_out
+        h = h + ffn_apply(cfg, blk["ffn"], h)
+        if collect_kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    hidden = layers.apply_norm(cfg, params["final_norm"], h)
+    return hidden, _zero_aux(h.device), kvs
+
+
+def forward(cfg: ArchConfig, params: Dict, batch: Dict,
+            ctx: ModelCtx = ModelCtx(), collect_kv: bool = False):
+    """Full-sequence forward.  Returns (logits, aux, kvs)."""
+    h, aux, kvs = forward_hidden(cfg, params, batch, ctx, collect_kv)
+    return layers.lm_logits(cfg, params, h), aux, kvs
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> Dict:
+    """Decode cache: zeros ``(L, batch, max_len, Hk, D)`` K and V in the
+    model dtype, plus per-row lengths."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    dtype = getattr(torch, cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def init_slots(cfg: ArchConfig, n_slots: int, max_len: int,
+               device=None) -> Dict:
+    """Slot-indexed decode state (one cache row per slot)."""
+    return init_cache(cfg, n_slots, max_len, device=device)
+
+
+def _uniform_prefill_slot(cfg, params, cache, tokens, true_len: int,
+                          slot: int, ctx):
+    logits, _, (k, v) = forward(cfg, params, {"tokens": tokens}, ctx,
+                                collect_kv=True)
+    S_p = tokens.shape[1]
+    cache["k"][:, slot, :S_p] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot, :S_p] = v[:, 0].to(cache["v"].dtype)
+    cache["len"][slot] = true_len
+    return logits[0, true_len - 1], cache
+
+
+def prefill_into_slot(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
+                      true_len: int, slot: int, ctx: ModelCtx = ModelCtx(),
+                      chunk: int = 0):
+    """Write one request's prompt K/V into slot ``slot`` of a state built by
+    :func:`init_slots` (rows [0, S_pad), in place) and return
+    (last-position logits (V,), the state).  ``tokens`` (1, S_pad) may be
+    right-padded; ``true_len`` marks the real prompt end (pad rows are dead
+    by the slot length)."""
+    check_ported(cfg)
+    if "block_table" in cache:
+        raise NotImplementedError("paged prefill is not ported yet "
+                                  "(ROADMAP.md)")
+    if chunk > 0:
+        raise NotImplementedError("streaming (chunked) prefill is not "
+                                  "ported yet (ROADMAP.md)")
+    return _uniform_prefill_slot(cfg, params, cache, tokens, true_len, slot,
+                                 ctx)
+
+
+def _uniform_decode(cfg, params, h, position, ctx, cache):
+    for i, blk in enumerate(_layers(params, cfg)):
+        h = h + attn_decode(cfg, blk["attn"], h, position, ctx,
+                            cache["k"][i], cache["v"][i], cache["len"])
+        h = h + ffn_apply(cfg, blk["ffn"], h)
+    # every slot advances, free ones included, as in the JAX package
+    return h, {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}
+
+
+def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
+                ctx: ModelCtx = ModelCtx()):
+    """One decode step.  tokens (B,1) -> (logits (B,1,V), new state)."""
+    check_ported(cfg)
+    if "block_table" in cache:
+        raise NotImplementedError("paged decode is not ported yet "
+                                  "(ROADMAP.md)")
+    h = layers.embed_tokens(params["embed"], tokens)
+    h, cache = _uniform_decode(cfg, params, h, cache["len"], ctx, cache)
+    h = layers.apply_norm(cfg, params["final_norm"], h)
+    return layers.lm_logits(cfg, params, h), cache

@@ -1,0 +1,20 @@
+"""Online serving: the continuous-batching engine, the recsys traffic
+simulator, and SLO-aware latency metrics (the dense greedy slice of
+``repro/serving``)."""
+from repro_torch.cache_layout import CacheLayout
+from repro_torch.serving.engine import (EngineConfig, NativeBackend,
+                                        ServingEngine, SlotBackend,
+                                        make_backend, serve)
+from repro_torch.serving.metrics import (RequestRecord, format_report,
+                                         percentile, summarize)
+from repro_torch.serving.traffic import (BATCH_TIER, INTERACTIVE_TIER, Clock,
+                                         Request, SLOTier, TrafficConfig,
+                                         generate)
+
+__all__ = [
+    "CacheLayout", "EngineConfig", "ServingEngine", "SlotBackend",
+    "NativeBackend", "make_backend", "serve",
+    "RequestRecord", "format_report", "percentile", "summarize",
+    "Request", "SLOTier", "TrafficConfig", "generate", "Clock",
+    "INTERACTIVE_TIER", "BATCH_TIER",
+]
