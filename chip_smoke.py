@@ -10,21 +10,34 @@ failing the run with a non-zero exit when its check fails:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the kernels' build time and ptxas resource report;
 2. kernels against their plain PyTorch versions on the card: every case of
-   ``tests/test_torch_kernels.py`` plus RecLLM-base's serving shapes, in
-   float32 (tolerance 1e-4) and bfloat16 (2e-2, absolute), and at those
-   shapes the time of the kernel, of the plain version and of one PyTorch
-   call computing the same function (``scaled_dot_product_attention`` with
-   the equivalent boolean mask, a yardstick the port never calls);
+   ``tests/test_torch_kernels.py`` (flash-attention, and flash-decode over
+   the dense, int8, paged and paged int8 caches) plus RecLLM-base's serving
+   shapes, in float32 (tolerance 1e-4) and bfloat16 (2e-2, absolute); a
+   paged-kernel run with the null block and every unmapped block filled
+   with NaN, which must give the same output (no dead table entry is
+   read); and at the serving shapes the time of the kernel, of the plain
+   version and, where one exists, of one PyTorch call computing the same
+   function (``scaled_dot_product_attention`` with the equivalent boolean
+   mask, a yardstick the port never calls), plus for the paged kernels the
+   dense kernel on the equivalent dense cache;
 3. serving RecLLM-base at full width in bf16 (random weights from a seeded
    generator) through ``repro_torch.serving``: 16 Poisson requests on 8
-   slots of 512 positions with both attention kernels on.  Every request
-   must finish and each kernel must have launched once per layer per
-   prefill / decode step.  Against the plain path (chunked prefill, dense
-   decode) on the same card: the first prefill row and decode step logits
-   within 2e-2 of the largest logit in bf16 and 1e-4 absolute in float32,
-   and the float32 workload under a pinned clock gives the same greedy
-   streams.  One more run under ``torch.profiler`` gives the device's busy
-   share of the run and its top kernels.
+   slots of 512 positions with both attention kernels on, under the dense
+   bf16 cache and then the paged, int8 and paged int8 layouts.  Each run
+   resets every launch counter just before it and reads them just after:
+   every request must finish, flash-attention must have launched once per
+   layer per prefill and the layout's decode kernel once per layer per
+   decode step, the other decode kernels never.  Against the plain path
+   (chunked prefill, dense decode) on the same card: the first prefill row
+   and decode step logits within 2e-2 of the largest logit in bf16 and
+   1e-4 absolute in float32, and the float32 workload under a pinned clock
+   gives the same greedy streams; likewise paged == dense kernel, int8
+   kernel == int8 plain path, paged int8 == int8 kernel.  One prefix-sharing
+   run (4 identical 40-token prompts, 16-row blocks) must share blocks,
+   copy on write, drain the pool and match the dense streams.  Each
+   layout's workload once more under ``torch.profiler`` gives the device's
+   busy share, its top kernels and the attention kernels' device time per
+   launch on the main path.
 
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
@@ -59,11 +72,48 @@ DECODE_CASES = [  # (B, Sq, H, Hk, S, lengths, q_lens, window, ring)
     (4, 2, 8, 2, 16, [1, 7, 16, 25], [2, 1, 2, 2], 12, True),
     (3, 3, 2, 2, 40, [2, 30, 38], [3, 2, 1], 6, False),
 ]
+QUANT_CASES = [  # (B, Sq, H, Hk, S, lengths, q_lens)
+    (4, 1, 2, 2, 40, [0, 1, 40, 17], None),
+    (4, 1, 8, 2, 48, [0, 49, 53, 7], None),
+    (4, 3, 2, 2, 40, [0, 5, 20, 38], [3, 1, 2, 3]),
+]
+PAGED_CASES = [  # (B, Sq, H, Hk, nb, bs, lengths, q_lens, window, ring)
+    (4, 1, 2, 2, 5, 8, [0, 1, 40, 17], None, 0, False),
+    (4, 1, 8, 2, 5, 8, [0, 0, 0, 0], None, 0, False),
+    (4, 1, 2, 2, 5, 8, [0, 1, 5, 40], None, 16, False),
+    (4, 1, 2, 2, 2, 8, [0, 3, 16, 29], None, 12, True),
+    (4, 3, 2, 2, 5, 8, [0, 5, 20, 38], [3, 1, 2, 3], 0, False),
+    (4, 2, 8, 2, 4, 4, [1, 7, 16, 25], [2, 1, 2, 2], 12, True),
+    (3, 3, 2, 2, 5, 8, [2, 30, 38], [3, 2, 1], 6, False),
+]
 CASE_D = 32
 # RecLLM-base serving shapes
 DECODE_MAIN = dict(B=8, S=512, H=12, Hk=12, D=64,
                    lengths=[1, 37, 64, 100, 200, 300, 450, 512])
+BLOCK_MAIN = 16                    # paged: rows per block (pool 8*32 + 1)
 PREFILL_MAIN = [dict(B=1, H=12, S=s, D=64) for s in (24, 200)]
+
+# name -> (port source, TPU kernel it replaces, launch counter owner)
+KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:74"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/decode_attention.py:221"),
+    "flash_decode_quant": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                           "src/repro/kernels/decode_attention.py:281"),
+    "flash_decode_paged": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                           "src/repro/kernels/decode_attention.py:352"),
+    "flash_decode_paged_quant": (
+        "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "src/repro/kernels/decode_attention.py:416"),
+}
+NO_LIBRARY = {
+    "flash_decode_quant": "no PyTorch call attends over int8 values with "
+                          "per-(position, head) scales",
+    "flash_decode_paged": "no PyTorch call attends through a block table",
+    "flash_decode_paged_quant": "no PyTorch call attends through a block "
+                                "table over int8 values with scales",
+}
 
 
 class SmokeFailure(Exception):
@@ -73,6 +123,26 @@ class SmokeFailure(Exception):
 def check(ok, msg):
     if not ok:
         raise SmokeFailure(msg)
+
+
+def _wrappers():
+    """Kernel name -> the wrapper that counts its launches."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels.flash_attention import flash_attention
+    return {"flash_attention": flash_attention,
+            "flash_decode": dk.flash_decode_attention,
+            "flash_decode_quant": dk.flash_decode_attention_quant,
+            "flash_decode_paged": dk.flash_decode_attention_paged,
+            "flash_decode_paged_quant": dk.flash_decode_attention_paged_quant}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_device(torch):
@@ -94,7 +164,7 @@ def phase_device(torch):
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[build] {len(_build.SOURCES)} kernels with nvcc in "
+    print(f"[build] {len(_build.SOURCES)} sources with nvcc in "
           f"{build_s:.1f} s")
     for name, log in sorted(_build.ptxas_log.items()):
         for line in log.splitlines():
@@ -104,146 +174,355 @@ def phase_device(torch):
             "cuda": torch.version.cuda, "build_s": build_s}
 
 
+SPIN_CYCLES = 20_000_000          # ~10 ms of device spin at H100 clocks
+
+
 def _time_ms(torch, fn, flush, iters=30):
-    """Mean device time of fn over ``iters`` calls, CUDA events around each,
-    the 50 MB L2 flushed before each call (a serving step finds its
-    layer's K/V cold: the other layers' caches ran through L2 since)."""
+    """Mean device time of fn over ``iters`` calls, CUDA events around each.
+
+    Before each call the 50 MB L2 is flushed (a serving step finds its
+    layer's K/V cold: the other layers' caches ran through L2 since) and a
+    spin kernel holds the device for ~10 ms, so the host has queued all of
+    fn's launches before the start event fires: the events time the device
+    work, not the host's launch latency.  A call the host took longer to
+    queue than 0.8 of the spin (the events would time host gaps) is not
+    counted; raises when fewer than ``iters`` of 3 * ``iters`` calls
+    count."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
+    spin = _spin_ms(torch)
+    times, host_max = [], 0.0
+    for _ in range(3 * iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         fn()
         end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        host_max = max(host_max, host_ms)
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        if host_ms < 0.8 * spin:
+            times.append(start.elapsed_time(end))
+            if len(times) == iters:
+                return sum(times) / iters
+    raise SmokeFailure(f"queueing the timed call took up to {host_max:.3f} "
+                       f"ms, longer than 0.8 of the {spin:.3f} ms spin, in "
+                       f"{3 * iters - len(times)} of {3 * iters} calls")
+
+
+def _spin_ms(torch):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def paged_tables(lengths, q_lens, nb, bs, seed=0, spare=3):
+    """(B, nb) int32 tables over a shuffled pool (the helper of
+    ``tests/test_torch_kernels.py``): each slot's live blocks get distinct
+    physical ids from a permutation of 1..N-1, dead entries point at the
+    null block 0.  Returns (tables, N) with N = B * nb + 1 + spare."""
+    import numpy as np
+    B = len(lengths)
+    N = B * nb + 1 + spare
+    perm = np.random.default_rng(seed).permutation(np.arange(1, N))
+    tables = np.zeros((B, nb), np.int32)
+    for b, n in enumerate(lengths):
+        last = n + (1 if q_lens is None else q_lens[b]) - 1
+        live = min(-(-min(last, nb * bs) // bs), nb)
+        tables[b, :live] = perm[b * nb:b * nb + live]
+    return tables, N
+
+
+class Inputs:
+    """Seeded inputs on the card for each kernel and its plain version."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.dev = torch.device("cuda")
+        self.gen = torch.Generator(device=self.dev).manual_seed(0)
+
+    def randn(self, *shape, dtype):
+        t = self.torch
+        return t.randn(shape, generator=self.gen, device=self.dev).to(dtype)
+
+    def int8(self, *shape):
+        return self.torch.randint(-127, 128, shape, generator=self.gen,
+                                  device=self.dev, dtype=self.torch.int8)
+
+    def scales(self, *shape):
+        # |values| <= 127 * 0.02 keeps bf16 outputs below 4, where a bf16
+        # ulp (1/64) stays inside the 2e-2 tolerance
+        return (self.torch.rand(shape, generator=self.gen, device=self.dev)
+                * 0.018 + 0.002)
+
+    def ints(self, xs):
+        if xs is None:
+            return None
+        return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
+
+    def prefill(self, B, H, Hk, S, D, causal, window, dtype):
+        from repro_torch.kernels import ops, ref
+        q, k, v = (self.randn(B, n, S, D, dtype=dtype) for n in (H, Hk, Hk))
+        kw = dict(causal=causal, window=window)
+        return (ops.flash_attention_bhsd, ref.flash_attention, (q, k, v), kw)
+
+    def decode(self, B, Sq, H, Hk, S, D, lengths, q_lens, window, ring,
+               dtype):
+        from repro_torch.kernels import decode_attention as dk
+        from repro_torch.kernels import ref
+        q = self.randn(B, Sq, H, D, dtype=dtype)
+        k, v = (self.randn(B, S, Hk, D, dtype=dtype) for _ in range(2))
+        kw = dict(window=window, ring=ring, q_lens=self.ints(q_lens))
+        return (dk.flash_decode_attention, ref.decode_attention,
+                (q, k, v, self.ints(lengths)), kw)
+
+    def quant(self, B, Sq, H, Hk, S, D, lengths, q_lens, dtype):
+        from repro_torch.kernels import decode_attention as dk
+        from repro_torch.kernels import ref
+        args = (self.randn(B, Sq, H, D, dtype=dtype),
+                self.int8(B, S, Hk, D), self.scales(B, S, Hk),
+                self.int8(B, S, Hk, D), self.scales(B, S, Hk),
+                self.ints(lengths))
+        return (dk.flash_decode_attention_quant, ref.decode_attention_quant,
+                args, dict(q_lens=self.ints(q_lens)))
+
+    def paged(self, B, Sq, H, Hk, nb, bs, D, lengths, q_lens, window, ring,
+              dtype, quant=False, poison=False):
+        """Shuffled pool; unmapped blocks (block 0 included) hold garbage x10
+        or, with ``poison``, NaN (int8: NaN scales, values 127)."""
+        from repro_torch.kernels import decode_attention as dk
+        from repro_torch.kernels import ref
+        torch = self.torch
+        tables, N = paged_tables(lengths, q_lens, nb, bs)
+        unused = torch.ones(N, dtype=torch.bool, device=self.dev)
+        unused[torch.as_tensor(tables[tables > 0], device=self.dev).long()] \
+            = False
+        q = self.randn(B, Sq, H, D, dtype=dtype)
+        if quant:
+            pools = [self.int8(N, bs, Hk, D), self.scales(N, bs, Hk),
+                     self.int8(N, bs, Hk, D), self.scales(N, bs, Hk)]
+            if poison:
+                for i in (0, 2):
+                    pools[i][unused] = 127
+                for i in (1, 3):
+                    pools[i][unused] = float("nan")
+            fn, plain = (dk.flash_decode_attention_paged_quant,
+                         ref.decode_attention_paged_quant)
+            kw = dict(q_lens=self.ints(q_lens))
+        else:
+            pools = [self.randn(N, bs, Hk, D, dtype=dtype) for _ in range(2)]
+            for p in pools:
+                p[unused] = float("nan") if poison else p[unused] * 10
+            fn, plain = dk.flash_decode_attention_paged, \
+                ref.decode_attention_paged
+            kw = dict(window=window, ring=ring, q_lens=self.ints(q_lens))
+        args = (q, *pools, self.ints(tables), self.ints(lengths))
+        return fn, plain, args, kw
+
+
+def _case_builders(inp):
+    """Kernel name -> [(case, build(dtype) -> (fn, plain, args, kw))]."""
+    D = CASE_D
+    return {
+        "flash_attention": [
+            (c, lambda dt, c=c: inp.prefill(*c[:4], D, *c[4:], dt))
+            for c in PREFILL_CASES],
+        "flash_decode": [
+            (c, lambda dt, c=c: inp.decode(*c[:5], D, *c[5:], dt))
+            for c in DECODE_CASES],
+        "flash_decode_quant": [
+            (c, lambda dt, c=c: inp.quant(*c[:5], D, *c[5:], dt))
+            for c in QUANT_CASES],
+        "flash_decode_paged": [
+            (c, lambda dt, c=c: inp.paged(*c[:6], D, *c[6:], dt))
+            for c in PAGED_CASES],
+        "flash_decode_paged_quant": [
+            (c, lambda dt, c=c: inp.paged(*c[:6], D, *c[6:], dt, quant=True))
+            for c in PAGED_CASES if not c[-2]],
+    }
+
+
 def phase_kernels(torch):
-    from repro_torch.kernels import ops, ref
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+    from repro_torch.models import kvquant
+    inp = Inputs(torch)
+    dev = inp.dev
     report = {"cases": [], "timing": {}}
-
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    def run_prefill(B, H, Hk, S, D, causal, window, dtype):
-        q, k, v = (randn(B, n, S, D, dtype=dtype) for n in (H, Hk, Hk))
-        got = ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
-        want = ref.flash_attention(q, k, v, causal=causal, window=window)
-        return (q, k, v), _max_err(got, want)
-
-    def run_decode(B, Sq, H, Hk, S, D, lengths, q_lens, window, ring, dtype):
-        q = randn(B, Sq, H, D, dtype=dtype)
-        k, v = (randn(B, S, Hk, D, dtype=dtype) for _ in range(2))
-        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        if q_lens is not None:
-            q_lens = torch.tensor(q_lens, dtype=torch.int32, device=dev)
-        kw = dict(window=window, ring=ring, q_lens=q_lens)
-        got = ops.flash_decode(q, k, v, lengths, **kw)
-        want = ref.decode_attention(q, k, v, lengths, **kw)
-        return (q, k, v, lengths), _max_err(got, want)
 
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         name = str(dtype).replace("torch.", "")
-        for c in PREFILL_CASES:
-            B, H, Hk, S, causal, window = c
-            _, err = run_prefill(B, H, Hk, S, CASE_D, causal, window, dtype)
-            report["cases"].append(["flash_attention", name, list(c), err])
-            check(err <= tol, f"flash_attention {name} case {c}: max abs "
-                              f"err {err} > {tol}")
-        for c in DECODE_CASES:
-            B, Sq, H, Hk, S, lengths, q_lens, window, ring = c
-            _, err = run_decode(B, Sq, H, Hk, S, CASE_D, lengths, q_lens,
-                                window, ring, dtype)
-            report["cases"].append(["flash_decode", name, list(c), err])
-            check(err <= tol, f"flash_decode {name} case {c}: max abs err "
-                              f"{err} > {tol}")
-        print(f"[kernels] {name}: {len(PREFILL_CASES)} flash_attention and "
-              f"{len(DECODE_CASES)} flash_decode cases within {tol} of the "
-              f"plain versions (worst "
+        counts = []
+        for kname, cases in _case_builders(inp).items():
+            for case, build in cases:
+                fn, plain, args, kw = build(dtype)
+                err = _max_err(fn(*args, **kw), plain(*args, **kw))
+                report["cases"].append([kname, name, list(case), err])
+                check(err <= tol, f"{kname} {name} case {case}: max abs err "
+                                  f"{err} > {tol}")
+            counts.append(f"{len(cases)} {kname}")
+        print(f"[kernels] {name}: {', '.join(counts)} cases within {tol} of "
+              f"the plain versions (worst "
               f"{max(e for _, n, _, e in report['cases'] if n == name):.3g})")
+
+    # the paged kernels read no dead table entry: NaN in the null block and
+    # every unmapped block changes nothing (the plain versions, which
+    # gather whole tables, would turn NaN there)
+    for quant in (False, True):
+        c = PAGED_CASES[4]                 # k rows across block boundaries
+        outs = []
+        for poison in (False, True):
+            inp.gen.manual_seed(7)
+            fn, _, args, kw = inp.paged(*c[:6], CASE_D, *c[6:8],
+                                        0 if quant else c[8],
+                                        False if quant else c[9],
+                                        torch.float32, quant=quant,
+                                        poison=poison)
+            outs.append(fn(*args, **kw))
+        same = bool(torch.equal(outs[0], outs[1]))
+        check(same and bool(torch.isfinite(outs[1]).all()),
+              f"paged{' int8' if quant else ''} kernel output changed with "
+              "NaN in unmapped blocks: it read a dead table entry")
+    print("[kernels] paged and paged int8: NaN in the null block and every "
+          "unmapped block leaves the output unchanged")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     F = torch.nn.functional
-
-    # decode at RecLLM-base's serving shape, ragged lengths
     m = DECODE_MAIN
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        (q, k, v, lengths), errs[dtype] = run_decode(
-            m["B"], 1, m["H"], m["Hk"], m["S"], m["D"], m["lengths"], None,
-            0, False, dtype)
-    check(errs[torch.float32] <= F32_TOL and errs[torch.bfloat16] <= BF16_TOL,
-          f"flash_decode at the serving shape: errors {errs}")
-    pos = torch.arange(m["S"], device=dev)
+    B, S, H, Hk, D = m["B"], m["S"], m["H"], m["Hk"], m["D"]
+    lengths = inp.ints(m["lengths"])
+    live = sum(m["lengths"])
+    qo_bytes = 2 * B * H * D * 2 + 4 * B          # q and o in bf16, lengths
+    flops = 4 * live * H * D
+    shape = f"B={B} S={S} H=Hk={H} D={D} bf16 q, lengths {m['lengths']}"
+
+    def timing(kname, fn, plain, args, kw, nbytes, library=None,
+               dense=None, shape_note=""):
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            a = tuple(x.to(dt) if x.dtype in (torch.float32, torch.bfloat16)
+                      and x.dim() == 4 and x.shape[-1] == D else x
+                      for x in args)
+            errs[dt] = _max_err(fn(*a, **kw), plain(*a, **kw))
+        check(errs[torch.float32] <= F32_TOL
+              and errs[torch.bfloat16] <= BF16_TOL,
+              f"{kname} at the serving shape: errors {errs}")
+        t = {"shape": shape + shape_note,
+             "max_abs_err": errs[torch.bfloat16], "tol": BF16_TOL,
+             "max_abs_err_f32": errs[torch.float32],
+             "ms": _time_ms(torch, lambda: fn(*args, **kw), flush),
+             "plain_ms": _time_ms(torch, lambda: plain(*args, **kw), flush),
+             "library_ms": (_time_ms(torch, library, flush)
+                            if library is not None else None),
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": flops / BF16_FLOPS_PER_S * 1e3}
+        if library is None:
+            t["library_note"] = NO_LIBRARY[kname]
+        if dense is not None:
+            t["dense_kernel_ms"] = _time_ms(torch, dense, flush)
+        report["timing"][kname] = [t]
+        return t
+
+    # decode at RecLLM-base's serving shape, ragged lengths: dense bf16
+    q = inp.randn(B, 1, H, D, dtype=torch.bfloat16)
+    k, v = (inp.randn(B, S, Hk, D, dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(S, device=dev)
     mask = (pos[None, :] < lengths[:, None].long())[:, None, None, :]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    live = sum(m["lengths"])
-    esz = 2
-    nbytes = (2 * live * m["Hk"] * m["D"] * esz           # live K and V
-              + 2 * m["B"] * m["H"] * m["D"] * esz + 4 * m["B"])  # q, o, len
-    flops = 4 * live * m["H"] * m["D"]
-    t = {"shape": (f"B={m['B']} S={m['S']} H=Hk={m['H']} D={m['D']} bf16, "
-                   f"lengths {m['lengths']}"),
-         "max_abs_err": errs[torch.bfloat16], "tol": BF16_TOL,
-         "ms": _time_ms(torch, lambda: ops.flash_decode(q, k, v, lengths),
-                        flush),
-         "plain_ms": _time_ms(torch, lambda: ref.decode_attention(
-             q, k, v, lengths), flush),
-         "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, attn_mask=mask), flush),
-         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-         "ops_ms": flops / BF16_FLOPS_PER_S * 1e3}
-    report["timing"]["flash_decode"] = [t]
+    timing("flash_decode", dk.flash_decode_attention, ref.decode_attention,
+           (q, k, v, lengths), {}, 2 * live * Hk * D * 2 + qo_bytes,
+           library=lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask))
+
+    # int8: values and scales from quantizing the same K/V
+    (k_q, k_s), (v_q, v_s) = kvquant.quantize_kv(k), kvquant.quantize_kv(v)
+    int8_bytes = 2 * live * Hk * D + 2 * live * Hk * 4
+    timing("flash_decode_quant", dk.flash_decode_attention_quant,
+           ref.decode_attention_quant, (q, k_q, k_s, v_q, v_s, lengths), {},
+           int8_bytes + qo_bytes, shape_note=", int8 K/V + f32 scales")
+
+    # paged: the same rows scattered over a shuffled (8 * 32 + 1)-block pool
+    nb = S // BLOCK_MAIN
+    tables_np, N = paged_tables(m["lengths"], None, nb, BLOCK_MAIN,
+                                spare=0)
+    tables = inp.ints(tables_np.tolist())
+    tbl_bytes = tables.numel() * 4
+
+    def pool_of(x):
+        p = torch.zeros((N, BLOCK_MAIN) + tuple(x.shape[2:]), dtype=x.dtype,
+                        device=dev)
+        p[tables.long().reshape(-1)] = x.reshape((B * nb, BLOCK_MAIN)
+                                                 + tuple(x.shape[2:]))
+        return p
+
+    kp, vp = pool_of(k), pool_of(v)
+    kd, vd = ref.paged_gather(kp, tables), ref.paged_gather(vp, tables)
+    note = f", pool ({N}, {BLOCK_MAIN}, {Hk}, {D}), tables ({B}, {nb})"
+    timing("flash_decode_paged", dk.flash_decode_attention_paged,
+           ref.decode_attention_paged, (q, kp, vp, tables, lengths), {},
+           2 * live * Hk * D * 2 + tbl_bytes + qo_bytes, shape_note=note,
+           dense=lambda: dk.flash_decode_attention(q, kd, vd, lengths))
+    pools = [pool_of(x) for x in (k_q, k_s, v_q, v_s)]
+    dq = [ref.paged_gather(p, tables) for p in pools]
+    timing("flash_decode_paged_quant", dk.flash_decode_attention_paged_quant,
+           ref.decode_attention_paged_quant, (q, *pools, tables, lengths), {},
+           int8_bytes + tbl_bytes + qo_bytes, shape_note=note + ", int8",
+           dense=lambda: dk.flash_decode_attention_quant(q, *dq, lengths))
 
     # prefill at RecLLM-base's prompt shapes
     report["timing"]["flash_attention"] = []
-    for m in PREFILL_MAIN:
+    for pm in PREFILL_MAIN:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
-            (q, k, v), errs[dtype] = run_prefill(m["B"], m["H"], m["H"],
-                                                 m["S"], m["D"], True, 0,
-                                                 dtype)
+            fn, plain, (qp, kpp, vpp), kw = inp.prefill(
+                pm["B"], pm["H"], pm["H"], pm["S"], pm["D"], True, 0, dtype)
+            errs[dtype] = _max_err(fn(qp, kpp, vpp, **kw),
+                                   plain(qp, kpp, vpp, **kw))
         check(errs[torch.float32] <= F32_TOL
               and errs[torch.bfloat16] <= BF16_TOL,
-              f"flash_attention at S={m['S']}: errors {errs}")
-        causal = torch.ones(m["S"], m["S"], dtype=torch.bool,
+              f"flash_attention at S={pm['S']}: errors {errs}")
+        causal = torch.ones(pm["S"], pm["S"], dtype=torch.bool,
                             device=dev).tril()
-        S, n = m["S"], m["B"] * m["H"] * m["S"] * m["D"]
-        flops = 4 * m["B"] * m["H"] * m["D"] * S * (S + 1) // 2
-        t = {"shape": f"B={m['B']} H=Hk={m['H']} S={S} D={m['D']} bf16 "
+        Sp, n = pm["S"], pm["B"] * pm["H"] * pm["S"] * pm["D"]
+        pflops = 4 * pm["B"] * pm["H"] * pm["D"] * Sp * (Sp + 1) // 2
+        t = {"shape": f"B={pm['B']} H=Hk={pm['H']} S={Sp} D={pm['D']} bf16 "
                       "causal",
              "max_abs_err": errs[torch.bfloat16], "tol": BF16_TOL,
-             "ms": _time_ms(torch, lambda: ops.flash_attention_bhsd(q, k, v),
-                            flush),
-             "plain_ms": _time_ms(torch, lambda: ref.flash_attention(
-                 q, k, v), flush),
+             "max_abs_err_f32": errs[torch.float32],
+             "ms": _time_ms(torch, lambda: fn(qp, kpp, vpp), flush),
+             "plain_ms": _time_ms(torch, lambda: plain(qp, kpp, vpp), flush),
              "library_ms": _time_ms(
                  torch, lambda: F.scaled_dot_product_attention(
-                     q, k, v, attn_mask=causal), flush),
+                     qp, kpp, vpp, attn_mask=causal), flush),
              "bytes_ms": 4 * n * 2 / HBM_BYTES_PER_S * 1e3,
-             "ops_ms": flops / BF16_FLOPS_PER_S * 1e3}
+             "ops_ms": pflops / BF16_FLOPS_PER_S * 1e3}
         report["timing"]["flash_attention"].append(t)
     for name, rows in report["timing"].items():
         for t in rows:
             t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
             t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                              else "operations")
+            lib = (f"sdpa {t['library_ms']:.4f} ms"
+                   if t["library_ms"] is not None else "no library call")
+            extra = (f", dense kernel on the gathered cache "
+                     f"{t['dense_kernel_ms']:.4f} ms"
+                     if "dense_kernel_ms" in t else "")
             print(f"[time {name}] {t['shape']}: kernel {t['ms']:.4f} ms, "
-                  f"plain {t['plain_ms']:.4f} ms, sdpa "
-                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-                  f"({t['bound_by']}), max abs err {t['max_abs_err']:.3g}")
+                  f"plain {t['plain_ms']:.4f} ms, {lib}{extra}, bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}), max abs err "
+                  f"{t['max_abs_err']:.3g}")
     return report
 
 
@@ -258,9 +537,9 @@ def _first_divergence(a, b):
 
 
 def _device_time(torch, fn):
-    """Run fn under torch.profiler; return the summed GPU kernel time by
-    kernel name (ms).  Kernels on one stream never overlap, so the sum is
-    the time the device was busy."""
+    """Run fn under torch.profiler; return {kernel name: (summed GPU time
+    in ms, launches)}.  Kernels on one stream never overlap, so the sum
+    over names is the time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -269,19 +548,29 @@ def _device_time(torch, fn):
     by_name = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us() / 1e3)
+            ms, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
     return by_name
+
+
+# serving layouts beyond the dense bf16 cache: name -> (CacheLayout kwargs,
+# the decode kernel that must carry every decode step)
+LAYOUTS = {
+    "paged": (dict(kind="paged", block_size=BLOCK_MAIN),
+              "flash_decode_paged"),
+    "int8": (dict(kv_bits=8), "flash_decode_quant"),
+    "paged_int8": (dict(kind="paged", kv_bits=8, block_size=BLOCK_MAIN),
+                   "flash_decode_paged_quant"),
+}
 
 
 def phase_serving(torch):
     from repro_torch import convert
     from repro_torch.config import get_arch
-    from repro_torch.kernels.decode_attention import flash_decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import transformer as tf
-    from repro_torch.serving import (Clock, EngineConfig, ServingEngine,
-                                     TrafficConfig, generate, make_backend)
+    from repro_torch.serving import (CacheLayout, Clock, EngineConfig,
+                                     Request, ServingEngine, TrafficConfig,
+                                     generate, make_backend)
     dev = torch.device("cuda")
     cfg = get_arch("recllm-base")
     ecfg = EngineConfig(n_slots=8, max_len=512)
@@ -289,63 +578,102 @@ def phase_serving(torch):
                                       vocab_size=cfg.vocab_size, seed=0))
     kern = tf.ModelCtx(attn_impl="flash", decode_impl="flash", attn_chunk=8)
     plain = tf.ModelCtx(attn_chunk=8)       # chunked prefill, dense decode
+    L = cfg.num_layers
 
     def params_for(c):
         return convert.init_params(
             c, torch.Generator(device=dev).manual_seed(0), dev)
 
-    def run(c, params, ctx, clock=None):
-        engine = ServingEngine(make_backend(c, params, ctx, device=dev),
-                               ecfg, clock)
-        return engine.run(requests)
+    def engine(c, params, ctx, clock=None, layout=None, e=ecfg):
+        if layout is not None:
+            e = dataclasses.replace(e, layout=layout)
+        return ServingEngine(make_backend(c, params, ctx, layout=layout,
+                                          device=dev), e, clock)
+
+    def run(c, params, ctx, clock=None, layout=None, reqs=requests, e=ecfg):
+        return engine(c, params, ctx, clock, layout, e).run(reqs)
+
+    def pinned():
+        return Clock(fixed_decode_s=0.01, fixed_prefill_s=0.02)
+
+    def measured(name, layout, decode_kernel):
+        """Warm-up, then one run between a reset and a read of every launch
+        counter; checks completion and launch counts."""
+        run(cfg, params, kern, layout=layout)   # warm-up: CUDA, cuBLAS init
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run(cfg, params, kern, layout=layout)
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        summary = out[2]
+        check(summary["finished"] == len(requests)
+              and summary["rejected"] == 0,
+              f"{name}: served {summary['finished']}/{len(requests)} "
+              "requests")
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = L * summary["prefills"]
+        want[decode_kernel] = L * summary["decode_steps"]
+        check(launches == want, f"{name}: launches {launches}, want {want} "
+              f"({summary['prefills']} prefills, {summary['decode_steps']} "
+              f"decode steps of {L} layers)")
+        t, p = summary["ttft_s"], summary["tpot_s"]
+        print(f"[serve {name}] {cfg.name} bf16, {ecfg.n_slots} slots x "
+              f"{ecfg.max_len}: {summary['finished']}/{len(requests)} "
+              f"requests, {summary['tokens_out']} tokens, "
+              f"{summary['prefills']} prefills, {summary['decode_steps']} "
+              f"decode steps in {wall_s:.3f} s; "
+              f"{summary['throughput_tok_s']:.1f} tok/s; TTFT p50 "
+              f"{t['p50'] * 1e3:.2f} ms p99 {t['p99'] * 1e3:.2f} ms; TPOT "
+              f"p50 {p['p50'] * 1e3:.2f} ms p99 {p['p99'] * 1e3:.2f} ms; "
+              f"kv_bytes_per_step {summary['kv_bytes_per_step']:.0f}"
+              + (f"; paged {summary['paged']}" if "paged" in summary
+                 else ""))
+        print(f"[serve {name}] launches: flash_attention "
+              f"{launches['flash_attention']} = {L} x {summary['prefills']} "
+              f"prefills, {decode_kernel} {launches[decode_kernel]} = {L} x "
+              f"{summary['decode_steps']} decode steps, other decode "
+              "kernels 0")
+        return {"summary": summary, "wall_s": wall_s, "launches": launches}
 
     params = params_for(cfg)
-    run(cfg, params, kern)                  # warm-up: CUDA and cuBLAS init
-    flash_attention.launches = 0
-    flash_decode_attention.launches = 0
-    t0 = time.perf_counter()
-    outputs, records, summary = run(cfg, params, kern)
-    wall_s = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_decode": flash_decode_attention.launches}
-    L = cfg.num_layers
-    check(summary["finished"] == len(requests) and summary["rejected"] == 0,
-          f"served {summary['finished']}/{len(requests)} requests")
-    check(launches["flash_attention"] == L * summary["prefills"],
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"for {summary['prefills']} prefills of {L} layers")
-    check(launches["flash_decode"] == L * summary["decode_steps"],
-          f"flash_decode launched {launches['flash_decode']} times for "
-          f"{summary['decode_steps']} decode steps of {L} layers")
-    t, p = summary["ttft_s"], summary["tpot_s"]
-    print(f"[serve] {cfg.name} bf16, {ecfg.n_slots} slots x "
-          f"{ecfg.max_len}: {summary['finished']}/{len(requests)} requests, "
-          f"{summary['tokens_out']} tokens, {summary['prefills']} prefills, "
-          f"{summary['decode_steps']} decode steps in {wall_s:.3f} s; "
-          f"{summary['throughput_tok_s']:.1f} tok/s; TTFT p50 "
-          f"{t['p50'] * 1e3:.2f} ms p99 {t['p99'] * 1e3:.2f} ms; TPOT p50 "
-          f"{p['p50'] * 1e3:.2f} ms p99 {p['p99'] * 1e3:.2f} ms")
-    print(f"[serve] launches: flash_attention {launches['flash_attention']} "
-          f"= {L} x {summary['prefills']} prefills, flash_decode "
-          f"{launches['flash_decode']} = {L} x {summary['decode_steps']} "
-          "decode steps")
+    report = {"runs": {"dense": measured("dense", None, "flash_decode")}}
+    for name, (kw, kname) in LAYOUTS.items():
+        report["runs"][name] = measured(
+            name, CacheLayout(impl="flash", **kw), kname)
 
-    # where the time goes: the same workload once more under the profiler;
-    # device busy time over the measured (unprofiled) run's wall time
-    by_name = _device_time(torch, lambda: run(cfg, params, kern))
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    profile = {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
-               "busy_share": busy_ms / (wall_s * 1e3),
-               "top_kernels_ms": top}
-    if busy_ms > 0:
-        print(f"[profile] device busy {busy_ms:.2f} ms of the run's "
-              f"{wall_s * 1e3:.1f} ms wall ({profile['busy_share']:.1%}); "
-              "top kernels: " + "; ".join(
-                  f"{n[:48]} {ms:.2f} ms" for n, ms in top))
-    else:
-        print("[profile] the profiler recorded no device time: device busy "
-              "share not measured")
+    # where the time goes: each workload once more under the profiler;
+    # device busy time over the measured (unprofiled) run's wall time, and
+    # the device time per launch of the attention kernels on the main path
+    report["profile"] = {}
+    for name, (kw, _) in [("dense", ({}, None)), *LAYOUTS.items()]:
+        layout = CacheLayout(impl="flash", **kw) if kw else None
+        by_name = _device_time(torch, lambda: run(cfg, params, kern,
+                                                  layout=layout))
+        wall_ms = report["runs"][name]["wall_s"] * 1e3
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        top = sorted(((n, ms) for n, (ms, _) in by_name.items()),
+                     key=lambda kv: -kv[1])[:6]
+        per_launch = {}
+        for kname, tag in (("flash_attention", "flash_attention_kernel"),
+                           ("decode", "flash_decode_kernel")):
+            hits = [v for n, v in by_name.items() if tag in n]
+            if hits:
+                per_launch[kname] = (sum(ms for ms, _ in hits)
+                                     / sum(c for _, c in hits))
+        report["profile"][name] = {
+            "device_busy_ms": busy_ms, "wall_ms": wall_ms,
+            "busy_share": busy_ms / wall_ms, "top_kernels_ms": top,
+            "device_ms_per_launch": per_launch}
+        if busy_ms > 0:
+            print(f"[profile {name}] device busy {busy_ms:.2f} ms of the "
+                  f"measured run's {wall_ms:.1f} ms wall "
+                  f"({busy_ms / wall_ms:.1%}); device ms per launch: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
+                  + "; top kernels: " + "; ".join(
+                      f"{n[:48]} {ms:.2f} ms" for n, ms in top))
+        else:
+            print(f"[profile {name}] the profiler recorded no device time: "
+                  "device busy share not measured")
 
     # first prefill row and first decode step: kernels vs plain path, in
     # bf16 (max abs diff relative to the largest plain logit: two bf16
@@ -387,6 +715,7 @@ def phase_serving(torch):
         check(max(e["prefill_abs"], e["decode_abs"]) <= tol * scale,
               f"{dname} logits of the kernel path differ from the plain "
               f"path: {e}")
+    report["logit_errs"] = logit_errs
 
     # greedy streams under a pinned clock: f32 must match exactly, bf16 is
     # reported with the logit margin of the first differing token
@@ -394,15 +723,32 @@ def phase_serving(torch):
     for dname, c, ps in (("bfloat16", cfg, params),
                          ("float32", cfg32, params32)):
         for name, ctx in (("kernels", kern), ("plain", plain)):
-            streams[dname, name] = run(c, ps, ctx, Clock(
-                fixed_decode_s=0.01, fixed_prefill_s=0.02))[0]
-    div32 = _first_divergence(streams["float32", "kernels"],
-                              streams["float32", "plain"])
-    check(div32 is None, f"float32 greedy streams differ at (rid, token) "
-                         f"{div32}")
+            streams[dname, name] = run(c, ps, ctx, pinned())[0]
     n_tok = sum(len(v) for v in streams["float32", "plain"].values())
-    print(f"[serve] float32 pinned-clock greedy streams: kernel path == "
-          f"plain path ({n_tok} tokens)")
+
+    def same_streams(a, b, what):
+        div = _first_divergence(streams[a], streams[b])
+        check(div is None, f"float32 greedy streams differ, {what}, at "
+                           f"(rid, token) {div}")
+        print(f"[serve] float32 pinned-clock greedy streams: {what} "
+              f"({n_tok} tokens)")
+
+    same_streams(("float32", "kernels"), ("float32", "plain"),
+                 "kernel path == plain path")
+    # the new layouts, float32, pinned clock
+    for name, (kw, _) in LAYOUTS.items():
+        streams["float32", name] = run(cfg32, params32, kern, pinned(),
+                                       CacheLayout(impl="flash", **kw))[0]
+    streams["float32", "int8_plain"] = run(
+        cfg32, params32, kern, pinned(),
+        CacheLayout(kv_bits=8, impl="dense"))[0]
+    same_streams(("float32", "paged"), ("float32", "kernels"),
+                 "paged kernel == dense kernel")
+    same_streams(("float32", "int8"), ("float32", "int8_plain"),
+                 "int8 kernel == int8 plain path")
+    same_streams(("float32", "paged_int8"), ("float32", "int8"),
+                 "paged int8 kernel == int8 kernel")
+
     div16 = _first_divergence(streams["bfloat16", "kernels"],
                               streams["bfloat16", "plain"])
     near_tie = None
@@ -423,16 +769,37 @@ def phase_serving(torch):
         print(f"[serve] bfloat16 pinned-clock greedy streams differ first at "
               f"request {rid} token {i}; the plain path's top-2 logit margin "
               f"there is {near_tie['plain_top2_margin']:.4g}")
-    return {"summary": summary, "wall_s": wall_s, "launches": launches,
-            "profile": profile,
-            "logit_errs": logit_errs, "bf16_near_tie": near_tie}
+    report["bf16_near_tie"] = near_tie
+
+    # prefix sharing on the card: 4 identical 40-token prompts (2 full
+    # blocks + an 8-row tail), paged bf16 cache with 16-row blocks, float32
+    prompt = tuple(int(t) for t in requests[0].prompt * 40)[:40]
+    share_reqs = [Request(rid=i, user_id=i, prompt=prompt, max_new_tokens=8,
+                          arrival=0.0) for i in range(4)]
+    dense_out = run(cfg32, params32, kern, pinned(), reqs=share_reqs)[0]
+    eng = engine(cfg32, params32, kern, pinned(),
+                 CacheLayout(kind="paged", impl="flash",
+                             block_size=BLOCK_MAIN))
+    shared_out, _, ssum = eng.run(share_reqs)
+    pg = ssum["paged"]
+    check(pg["shared_hits"] > 0 and pg["cow_events"] > 0,
+          f"prefix sharing: no shared block or no copy-on-write: {pg}")
+    check(eng.pool.used_blocks == 0,
+          f"prefix sharing: {eng.pool.used_blocks} blocks still used after "
+          "the drain")
+    check(_first_divergence(shared_out, dense_out) is None,
+          "prefix sharing: streams differ from the dense run")
+    print(f"[serve] prefix sharing, 4 x one 40-token prompt, blocks of "
+          f"{BLOCK_MAIN}: {pg}; pool drained; float32 streams == dense")
+    report["prefix_sharing"] = pg
+    return report
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
                     help="also write the full report (every case's error, "
-                         "the timings, the serve summary) as JSON here")
+                         "the timings, the serve summaries) as JSON here")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -460,19 +827,17 @@ def main(argv=None) -> int:
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(json.dumps(report, indent=1, default=str))
 
-    sources = {"flash_attention": ("src/repro_torch/kernels/csrc/"
-                                   "flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:74"),
-               "flash_decode": ("src/repro_torch/kernels/csrc/"
-                                "flash_decode.cu",
-                                "src/repro/kernels/decode_attention.py:221")}
+    # launches: each kernel's count in the serve run of its own path
+    path_of = {"flash_attention": "dense", "flash_decode": "dense",
+               **{kname: name for name, (_, kname) in LAYOUTS.items()}}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": report["serving"]["launches"][name],
+            "launches": report["serving"]["runs"][path_of[name]]["launches"][
+                name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -21,16 +21,15 @@ Fields:
     the TPU flash-decode KV tile; the CUDA kernel picks its own tiling and
     does not read it.
 
-This slice serves ``kind="dense"`` with ``kv_bits=16`` only; the consumers
-(:func:`repro_torch.kernels.ops.decode_attention`,
-:func:`repro_torch.serving.engine.make_backend`) raise
-``NotImplementedError`` for the other layouts.
+Every (kind, kv_bits, impl) cell is served for the uniform family; the
+int8 layouts take the full-cache mask only (``window``/``ring`` raise), as
+in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["CacheLayout", "require_dense16"]
+__all__ = ["CacheLayout", "blocks_per_slot", "resolved_num_blocks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +68,23 @@ class CacheLayout:
         return dataclasses.replace(self, **kw)
 
 
-def require_dense16(layout: CacheLayout) -> None:
-    """Raise for every layout this slice of the port does not serve."""
-    if layout.paged or layout.quantized:
-        raise NotImplementedError(
-            f"cache layout kind={layout.kind!r} kv_bits={layout.kv_bits} is "
-            "not ported yet (this slice serves dense 16-bit caches; the "
-            "paged and int8 layouts are queued in ROADMAP.md)")
+def blocks_per_slot(layout: CacheLayout, max_len: int) -> int:
+    """Block-table width: virtual blocks covering one slot's serving window.
+    ``max_len`` must be a multiple of ``block_size`` so dense and paged
+    states describe the same position space."""
+    if max_len % layout.block_size:
+        raise ValueError(
+            f"max_len={max_len} must be a multiple of "
+            f"block_size={layout.block_size} for the paged layout")
+    return max_len // layout.block_size
+
+
+def resolved_num_blocks(layout: CacheLayout, n_slots: int,
+                        max_len: int) -> int:
+    """Pool capacity in blocks: ``layout.num_blocks``, or (when 0) the
+    dense-equivalent ``n_slots * max_len / block_size``; either way plus
+    one: block 0 is the reserved null sink (never allocated; dead table
+    entries point at it)."""
+    nb = blocks_per_slot(layout, max_len)
+    cap = layout.num_blocks if layout.num_blocks > 0 else n_slots * nb
+    return cap + 1

@@ -29,12 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of the entry points (see the extern "C" blocks in csrc/)
+_DECODE_ARGS = [_P] * 9 + [_I] * 8 + [ctypes.POINTER(_L), _F, _I, _I, _P]
+# C entry point -> (source it is built from, argtypes); see the extern "C"
+# blocks in csrc/.  The four decode layouts share one signature.
 SIGNATURES: Dict[str, Tuple[str, list]] = {
-    "flash_attention": ("repro_flash_attention",
-                        [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P]),
-    "flash_decode": ("repro_flash_decode",
-                     [_P] * 6 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P]),
+    "repro_flash_attention": ("flash_attention",
+                              [_P] * 4 + [_I] * 7 + [_L] * 12
+                              + [_F, _I, _I, _P]),
+    "repro_flash_decode": ("flash_decode", _DECODE_ARGS),
+    "repro_flash_decode_quant": ("flash_decode", _DECODE_ARGS),
+    "repro_flash_decode_paged": ("flash_decode", _DECODE_ARGS),
+    "repro_flash_decode_paged_quant": ("flash_decode", _DECODE_ARGS),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -103,22 +108,24 @@ def build_all(names: Sequence[str] = SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if need be."""
+    """The loaded library of source ``name``, built first if need be, with
+    the argtypes of its entry points declared."""
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, (src, argtypes) in SIGNATURES.items():
+            if src == name:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 
 
-def entry(name: str):
-    """The C entry point of kernel ``name`` (argtypes already declared)."""
-    return getattr(load(name), SIGNATURES[name][0])
+def entry(fn_name: str):
+    """The C entry point ``fn_name`` (argtypes already declared)."""
+    return getattr(load(SIGNATURES[fn_name][0]), fn_name)
 
 
 def check(name: str, err: int) -> None:
@@ -126,24 +133,30 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def check_inputs(name: str, *tensors) -> None:
-    """Raise on anything the attention kernels do not take: tensors off one
-    CUDA device, a dtype other than float32/bfloat16 (one for all), a head
-    dim other than 32/64/128, a strided last dim, or row starts that are
-    not 16-byte aligned (K rows are read with 16-byte loads)."""
+def check_inputs(name: str, q, *values, scales=()) -> None:
+    """Raise on anything the attention kernels do not take: tensors off q's
+    CUDA device, a q dtype other than float32/bfloat16, K/V values of
+    another dtype than q's (int8 when ``scales`` are given, and the scales
+    float32), a head dim other than 32/64/128, a strided last dim, or value
+    rows that do not start 16-byte aligned (K rows are read with 16-byte
+    loads).  Scales are read one float at a time through their strides."""
     import torch
-    t0 = tensors[0]
-    if t0.device.type != "cuda":
+    if q.device.type != "cuda":
         raise ValueError(f"{name}: kernel inputs must be CUDA tensors")
-    if t0.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: dtype {t0.dtype} (want float32|bfloat16)")
-    if t0.shape[-1] not in (32, 64, 128):
-        raise ValueError(f"{name}: head dim {t0.shape[-1]} (want 32|64|128)")
-    for t in tensors:
-        if t.device != t0.device or t.dtype != t0.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {q.dtype} (want float32|bfloat16)")
+    if q.shape[-1] not in (32, 64, 128):
+        raise ValueError(f"{name}: head dim {q.shape[-1]} (want 32|64|128)")
+    value_dtype = torch.int8 if scales else q.dtype
+    for t in (q, *values):
+        if t.device != q.device or t.dtype != (q.dtype if t is q
+                                               else value_dtype):
             raise ValueError(f"{name}: inputs differ in device or dtype")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dim must be contiguous")
         esz = t.element_size()
         if t.data_ptr() % 16 or any(s * esz % 16 for s in t.stride()[:-1]):
             raise ValueError(f"{name}: rows must start 16-byte aligned")
+    for t in scales:
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: scales must be float32 on q's device")

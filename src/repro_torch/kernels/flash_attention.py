@@ -33,7 +33,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
     out = torch.empty_like(q)          # keeps q's strides
     if Sq == 0:
         return out
-    fn = _build.entry("flash_attention")
+    fn = _build.entry("repro_flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              int(q.dtype == torch.bfloat16), B, H, Hk, Sq, Sk, D,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

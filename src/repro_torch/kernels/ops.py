@@ -3,14 +3,15 @@
 ``impl="kernel"`` runs the kernel wrapper, which launches the CUDA kernel
 for CUDA tensors and runs the plain version for CPU tensors; ``impl="ref"``
 forces the plain version.  :func:`decode_attention` is the one decode entry
-point keyed off a :class:`~repro_torch.cache_layout.CacheLayout`; this
-slice serves the dense 16-bit layout (other layouts raise).
+point keyed off a :class:`~repro_torch.cache_layout.CacheLayout`, over the
+whole (dense | paged) x (16-bit | int8) x (ref | dense | flash) matrix.
 """
 from __future__ import annotations
 
-from repro_torch.cache_layout import require_dense16
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import flash_decode_attention
+from repro_torch.kernels.decode_attention import (
+    flash_decode_attention, flash_decode_attention_paged,
+    flash_decode_attention_paged_quant, flash_decode_attention_quant)
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 
 
@@ -46,27 +47,55 @@ def flash_attention(q, k, v, *, causal=True, window=0, softmax_scale=None,
 
 def decode_attention(q, cache, lengths, *, layout, softmax_scale=None,
                      q_lens=None):
-    """THE decode-attention entry point, keyed off one CacheLayout.  ``cache``
-    is ``{"k", "v"}`` with (B, S, Hk, D) per-slot rows; ``layout.impl``
-    selects the plain oracle (``ref``), the dense einsum (``dense``) or the
-    CUDA flash-decode kernel (``flash``); ``layout.window``/``layout.ring``
-    the masking variant; ``q_lens`` (B,) the live draft rows of a k-row
-    verify."""
-    require_dense16(layout)
-    k, v = cache["k"], cache["v"]
+    """THE decode-attention entry point, keyed off one CacheLayout.
+
+    ``cache`` holds ``{"k", "v"}`` (16-bit) or ``{"k_q", "k_s", "v_q",
+    "v_s"}`` (int8) as per-slot rows (B, S, Hk, D) or, for a paged layout,
+    as pools (N, bs, Hk, D) plus ``"block_table"`` (B, nb).
+    ``layout.impl`` selects the plain oracle (``ref``), the dense einsum
+    over the (gathered) cache (``dense``) or the CUDA flash-decode kernel
+    of the layout (``flash``); ``layout.window``/``layout.ring`` the masking
+    variant (int8 takes full-cache masking only, as the kernels do);
+    ``q_lens`` (B,) the live draft rows of a k-row verify."""
+    if layout.quantized and (layout.window or layout.ring):
+        raise ValueError("int8 decode supports full-cache masking only")
+    table = cache["block_table"] if layout.paged else None
+
+    def dense_view(x):
+        return ref.paged_gather(x, table) if layout.paged else x
+
+    if layout.quantized:
+        args = (cache["k_q"], cache["k_s"], cache["v_q"], cache["v_s"])
+        if layout.impl == "ref":
+            return ref.decode_attention_quant(
+                q, *(dense_view(a) for a in args), lengths,
+                softmax_scale=softmax_scale, q_lens=q_lens)
+        if layout.impl == "dense":
+            from repro_torch.models import kvquant
+            return kvquant.decode_attention_quant(
+                q, *(dense_view(a) for a in args), lengths,
+                softmax_scale=softmax_scale, impl="dense", q_lens=q_lens)
+        if layout.paged:
+            return flash_decode_attention_paged_quant(
+                q, *args, table, lengths, softmax_scale=softmax_scale,
+                q_lens=q_lens)
+        return flash_decode_attention_quant(q, *args, lengths,
+                                            softmax_scale=softmax_scale,
+                                            q_lens=q_lens)
+    kw = dict(window=layout.window, ring=layout.ring,
+              softmax_scale=softmax_scale, q_lens=q_lens)
     if layout.impl == "ref":
-        return ref.decode_attention(q, k, v, lengths, window=layout.window,
-                                    ring=layout.ring,
-                                    softmax_scale=softmax_scale,
-                                    q_lens=q_lens)
+        return ref.decode_attention(q, dense_view(cache["k"]),
+                                    dense_view(cache["v"]), lengths, **kw)
     if layout.impl == "dense":
         from repro_torch.models import attention
-        return attention.decode_attention(
-            q, k, v, lengths, window=layout.window, ring=layout.ring,
-            softmax_scale=softmax_scale, impl="dense", q_lens=q_lens)
-    return flash_decode_attention(q, k, v, lengths, window=layout.window,
-                                  ring=layout.ring,
-                                  softmax_scale=softmax_scale, q_lens=q_lens)
+        return attention.decode_attention(q, dense_view(cache["k"]),
+                                          dense_view(cache["v"]), lengths,
+                                          impl="dense", **kw)
+    if layout.paged:
+        return flash_decode_attention_paged(q, cache["k"], cache["v"], table,
+                                            lengths, **kw)
+    return flash_decode_attention(q, cache["k"], cache["v"], lengths, **kw)
 
 
 def flash_decode(q, k_cache, v_cache, lengths, *, window=0, ring=False,
@@ -82,3 +111,18 @@ def flash_decode(q, k_cache, v_cache, lengths, *, window=0, ring=False,
     return flash_decode_attention(q, k_cache, v_cache, lengths,
                                   window=window, ring=ring,
                                   softmax_scale=softmax_scale, q_lens=q_lens)
+
+
+def flash_decode_quant(q, k_q, k_s, v_q, v_s, lengths, *, softmax_scale=None,
+                       impl="kernel", q_lens=None):
+    """Int8 decode over per-slot live cache prefixes: values (B, S, Hk, D)
+    int8, per-(position, head) f32 scales (B, S, Hk), dequantized in the
+    kernel."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths,
+                                          softmax_scale=softmax_scale,
+                                          q_lens=q_lens)
+    return flash_decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths,
+                                        softmax_scale=softmax_scale,
+                                        q_lens=q_lens)

@@ -102,3 +102,64 @@ def decode_attention(q, k, v, lengths, *, window=0, ring=False,
     p = torch.where(valid, p, torch.zeros_like(p))           # len==0 -> 0
     out = torch.einsum("bhjgk,bkhd->bjhgd", p, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths, *,
+                           softmax_scale=None, q_lens=None):
+    """Int8 cache: values (B, S, Hk, D) int8, scales (B, S, Hk) f32; full
+    mask.  ``k_s`` folds into the scores after QK; ``v_s`` into the
+    probabilities after the softmax, before PV."""
+    B, Sq, H, D = q.shape
+    S, Hk = k_q.shape[1], k_q.shape[2]
+    G = H // Hk
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    lengths = lengths.to(torch.int64)
+    if q_lens is None:
+        q_lens = torch.full((B,), Sq, dtype=torch.int64, device=q.device)
+    qg = q.reshape(B, Sq, Hk, G, D).float()
+    s = torch.einsum("bjhgd,bkhd->bhjgk", qg, k_q.float())
+    s = s * k_s.transpose(1, 2)[:, :, None, None, :] * scale
+    valid = _decode_mask_rows(lengths, q_lens.to(torch.int64), Sq, S, 0,
+                              False)[:, None, :, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    pv = torch.einsum("bhjgk,bkhd->bjhgd",
+                      p * v_s.transpose(1, 2)[:, :, None, None, :],
+                      v_q.float())
+    return pv.reshape(B, Sq, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged layouts: a shared pool (N, bs, ...) + per-slot block tables (B, nb)
+# ---------------------------------------------------------------------------
+
+def paged_gather(pool, table):
+    """The slot-contiguous view a paged cache virtualizes: pool (N, bs, ...)
+    + table (B, nb) -> (B, nb * bs, ...).  Dead entries gather the null
+    block's rows, which every consumer masks by length."""
+    B, nb = table.shape
+    bs = pool.shape[1]
+    return pool[table.reshape(-1).long()].reshape(
+        (B, nb * bs) + tuple(pool.shape[2:]))
+
+
+def decode_attention_paged(q, k_pool, v_pool, block_tables, lengths, *,
+                           window=0, ring=False, softmax_scale=None,
+                           q_lens=None):
+    """Gather the pool blocks into the dense layout, then attend."""
+    return decode_attention(q, paged_gather(k_pool, block_tables),
+                            paged_gather(v_pool, block_tables), lengths,
+                            window=window, ring=ring,
+                            softmax_scale=softmax_scale, q_lens=q_lens)
+
+
+def decode_attention_paged_quant(q, k_q_pool, k_s_pool, v_q_pool, v_s_pool,
+                                 block_tables, lengths, *,
+                                 softmax_scale=None, q_lens=None):
+    return decode_attention_quant(
+        q, paged_gather(k_q_pool, block_tables),
+        paged_gather(k_s_pool, block_tables),
+        paged_gather(v_q_pool, block_tables),
+        paged_gather(v_s_pool, block_tables), lengths,
+        softmax_scale=softmax_scale, q_lens=q_lens)

@@ -1,5 +1,5 @@
 """Serving launcher: the continuous-batching engine under simulated recsys
-load (port of ``repro/launch/serve.py``, engine mode, dense greedy slice).
+load (port of ``repro/launch/serve.py``, engine mode, greedy uniform slice).
 
 Runs on the GPU unless ``--device cpu``; reports throughput and p50/p95/p99
 TTFT / per-token latency against SLO tiers:
@@ -7,11 +7,16 @@ TTFT / per-token latency against SLO tiers:
   PYTHONPATH=src python -m repro_torch.launch.serve --slots 8 --max-len 512 \\
       --attn-impl flash --decode-impl flash
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --cache-layout paged --kv int8 --decode-impl flash
 
 ``--attn-impl flash`` runs prefill attention through the CUDA flash-attention
 kernel (the JAX package's ``pallas`` value); ``--decode-impl flash`` runs
-every decode step through the CUDA flash-decode kernel.  Weights are random,
-drawn from ``--seed``.
+every decode step through the CUDA flash-decode kernel of the cache layout.
+The layout flags (``--kv``, ``--cache-layout``, ``--block-size``,
+``--num-blocks``, ``--no-prefix-sharing``) fold into one
+:class:`~repro_torch.cache_layout.CacheLayout`, as in the JAX launcher.
+Weights are random, drawn from ``--seed``.
 """
 import argparse
 import dataclasses
@@ -45,7 +50,12 @@ def run_engine(args) -> int:
         vocab_size=cfg.vocab_size, seed=args.seed)
     requests = generate(tcfg)
 
-    layout = CacheLayout(impl=args.decode_impl)
+    layout = CacheLayout(kind=args.cache_layout,
+                         kv_bits=8 if args.kv == "int8" else 16,
+                         impl=args.decode_impl,
+                         block_size=args.block_size,
+                         num_blocks=args.num_blocks,
+                         prefix_sharing=not args.no_prefix_sharing)
     ecfg = EngineConfig(n_slots=args.slots, max_len=args.max_len,
                         queue_capacity=args.queue_capacity,
                         refill=args.refill, sample_seed=args.seed,
@@ -63,7 +73,8 @@ def run_engine(args) -> int:
         mk_server().run(requests)
     outputs, records, summary = mk_server().run(requests)
 
-    title = (f"{cfg.name} dense attn={args.attn_impl} "
+    title = (f"{cfg.name} {args.cache_layout} kv={args.kv} "
+             f"attn={args.attn_impl} "
              f"decode={args.decode_impl} refill={args.refill} "
              f"slots={args.slots} {args.process}@{args.rate:g}req/s "
              f"on {device}")
@@ -85,6 +96,22 @@ def main(argv=None) -> int:
     ap.add_argument("--rate", type=float, default=64.0)
     ap.add_argument("--process", default="poisson",
                     choices=("poisson", "bursty"))
+    ap.add_argument("--kv", default="native", choices=("native", "int8"))
+    ap.add_argument("--cache-layout", default="dense",
+                    choices=("dense", "paged"),
+                    help="KV cache layout: dense per-slot (B, S, ...) rows "
+                         "or the shared block pool with per-slot block "
+                         "tables, prefix sharing and copy-on-write")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged layout: KV rows per physical block")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="paged layout: pool size in blocks (0 = auto: one "
+                         "dense footprint, slots*max_len/block_size); set "
+                         "below auto to oversubscribe and exercise "
+                         "admission queueing")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="paged layout: disable content-hash prompt-prefix "
+                         "block sharing")
     ap.add_argument("--attn-impl", default="chunked",
                     choices=("naive", "chunked", "flash"),
                     help="prefill attention: plain (naive/chunked) or the "
@@ -92,7 +119,8 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-impl", default="dense",
                     choices=("dense", "flash"),
                     help="decode attention: dense einsum over the padded "
-                         "cache, or the CUDA flash-decode kernel")
+                         "(or gathered paged) cache, or the CUDA "
+                         "flash-decode kernel of the layout")
     ap.add_argument("--refill", default="continuous",
                     choices=("continuous", "static"))
     ap.add_argument("--queue-capacity", type=int, default=64)

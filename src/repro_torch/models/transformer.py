@@ -7,14 +7,16 @@ leaves under ``params["blocks"]`` stay stacked ``(L, ...)`` and the layers
 run as a Python loop (the JAX ``lax.scan``).
 
 **The KV cache is updated in place.**  JAX writes a new cache array each
-step (``k_cache.at[...].set``); here :func:`attn_decode` and
-:func:`prefill_into_slot` write the new rows into the stacked
-``(L, n_slots, S, Hk, D)`` tensors they were given, and return the same
-tensors.  Only ``cache["len"]`` is a new tensor after a decode step.
+step (``k_cache.at[...].set``); here :func:`attn_decode`,
+:func:`attn_decode_paged` and :func:`prefill_into_slot` write the new rows
+into the stacked ``(L, n_slots, S, Hk, D)`` tensors or ``(L, N, bs, Hk,
+D)`` pools they were given, and return the same tensors.  Only
+``cache["len"]`` is a new tensor after a decode step.
 
-This slice covers the dense uniform family (RecLLM): MoE layers, M-RoPE,
-learned positions, qk-norm, the other families, paged caches and chunked
-prefill raise ``NotImplementedError``; they are queued in ``ROADMAP.md``.
+This slice covers the uniform family (RecLLM) with dense and paged caches:
+MoE layers, M-RoPE, learned positions, qk-norm, the other families and
+chunked prefill raise ``NotImplementedError``; they are queued in
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.cache_layout import CacheLayout
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
@@ -123,6 +126,39 @@ def attn_decode(cfg: ArchConfig, p: Dict, x, position, ctx: ModelCtx,
     return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 
+def attn_decode_paged(cfg: ArchConfig, p: Dict, x, position, ctx: ModelCtx,
+                      k_pool, v_pool, read_table, write_table, cache_len):
+    """One-token decode against a paged cache.  x (B,1,d); pools
+    (N, bs, Hk, D) shared across slots (written in place); tables (B, nb)
+    int32; cache_len (B,).  Returns the residual branch.
+
+    The new K/V row lands at physical block ``write_table[b, len // bs]``,
+    row ``len % bs`` -- the *write* table, so slots that do not own their
+    frontier block (shared prefix tails awaiting copy-on-write, or free
+    slots with zeroed tables) write into the null block 0 instead of
+    corrupting a neighbour.  Attention reads through the *read* table.  A
+    free slot's length keeps counting past the table: as JAX clamps an
+    out-of-range gather, its block index is clamped to the last column
+    (an entry that is 0 for every free slot)."""
+    from repro_torch.kernels import ops
+    B, bs = x.shape[0], k_pool.shape[1]
+    nb = read_table.shape[1]
+    h = layers.apply_norm(cfg, p["norm"], x)
+    q, k, v = _qkv(cfg, p, h, position[:, None])
+    rows = torch.arange(B, device=x.device)
+    blk = torch.clamp(cache_len // bs, max=nb - 1).long()
+    phys = write_table[rows, blk].long()
+    off = (cache_len % bs).long()
+    k_pool[phys, off] = k[:, 0].to(k_pool.dtype)
+    v_pool[phys, off] = v[:, 0].to(v_pool.dtype)
+    layout = CacheLayout(kind="paged", impl=ctx.decode_impl, block_size=bs)
+    valid = torch.clamp(cache_len + 1, max=nb * bs)
+    o = ops.decode_attention(q, {"k": k_pool, "v": v_pool,
+                                 "block_table": read_table}, valid,
+                             layout=layout)
+    return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+
 def ffn_apply(cfg: ArchConfig, p: Dict, x):
     h = layers.apply_norm(cfg, p["norm"], x)
     return layers.apply_mlp(cfg, p["mlp"], h)
@@ -190,6 +226,51 @@ def init_slots(cfg: ArchConfig, n_slots: int, max_len: int,
     return init_cache(cfg, n_slots, max_len, device=device)
 
 
+def init_paged_slots(cfg: ArchConfig, n_slots: int, max_len: int, *,
+                     num_blocks: int, block_size: int, device=None) -> Dict:
+    """Paged decode state: per-layer KV in one shared pool
+    ``(L, num_blocks, block_size, Hk, D)`` instead of per-slot rows; slots
+    hold only block tables.  ``block_table`` is what attention *reads*
+    through, ``write_table`` where appends land (entries the slot does not
+    own point at the null block 0).  Both start all-null: the serving
+    engine's block-pool machinery fills them at admission."""
+    check_ported(cfg)
+    if max_len % block_size:
+        raise ValueError(f"max_len={max_len} not a multiple of "
+                         f"block_size={block_size}")
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    dtype = getattr(torch, cfg.dtype)
+    nb = max_len // block_size
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "block_table": torch.zeros((n_slots, nb), dtype=torch.int32,
+                                       device=dev),
+            "write_table": torch.zeros((n_slots, nb), dtype=torch.int32,
+                                       device=dev),
+            "len": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
+
+
+def scatter_prompt_blocks(cache: Dict, name: str, rows, slot: int) -> None:
+    """Write one prompt's per-layer rows ``(L, S_p, ...)`` into pool
+    ``cache[name]`` ``(L, N, bs, ...)`` block by block through the slot's
+    write table, in place.  Rows are zero-padded to whole blocks; virtual
+    blocks the slot does not own (shared sealed prefix blocks, entries past
+    its mapped span) have write entry 0, so their rows land in the null
+    block."""
+    pool = cache[name]
+    L, S_p = rows.shape[:2]
+    bs = pool.shape[2]
+    pad = (-S_p) % bs
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((L, pad) + rows.shape[2:])],
+                         dim=1)
+    nbp = (S_p + pad) // bs
+    wt = cache["write_table"][slot, :nbp].long()
+    pool[:, wt] = rows.reshape((L, nbp, bs) + rows.shape[2:]).to(pool.dtype)
+
+
 def _uniform_prefill_slot(cfg, params, cache, tokens, true_len: int,
                           slot: int, ctx):
     logits, _, (k, v) = forward(cfg, params, {"tokens": tokens}, ctx,
@@ -201,21 +282,36 @@ def _uniform_prefill_slot(cfg, params, cache, tokens, true_len: int,
     return logits[0, true_len - 1], cache
 
 
+def _uniform_prefill_slot_paged(cfg, params, cache, tokens, true_len: int,
+                                slot: int, ctx):
+    """Paged twin of :func:`_uniform_prefill_slot`: the same whole-prompt
+    forward, its K/V rows scattered through the slot's write table.  Pad
+    rows inside owned blocks are dead by the slot length and are
+    overwritten by decode appends before the length reaches them."""
+    logits, _, (k, v) = forward(cfg, params, {"tokens": tokens}, ctx,
+                                collect_kv=True)
+    scatter_prompt_blocks(cache, "k", k[:, 0], slot)
+    scatter_prompt_blocks(cache, "v", v[:, 0], slot)
+    cache["len"][slot] = true_len
+    return logits[0, true_len - 1], cache
+
+
 def prefill_into_slot(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
                       true_len: int, slot: int, ctx: ModelCtx = ModelCtx(),
                       chunk: int = 0):
     """Write one request's prompt K/V into slot ``slot`` of a state built by
-    :func:`init_slots` (rows [0, S_pad), in place) and return
-    (last-position logits (V,), the state).  ``tokens`` (1, S_pad) may be
-    right-padded; ``true_len`` marks the real prompt end (pad rows are dead
-    by the slot length)."""
+    :func:`init_slots` (rows [0, S_pad)) or :func:`init_paged_slots`
+    (through the write table), in place, and return (last-position logits
+    (V,), the state).  ``tokens`` (1, S_pad) may be right-padded;
+    ``true_len`` marks the real prompt end (pad rows are dead by the slot
+    length)."""
     check_ported(cfg)
-    if "block_table" in cache:
-        raise NotImplementedError("paged prefill is not ported yet "
-                                  "(ROADMAP.md)")
     if chunk > 0:
         raise NotImplementedError("streaming (chunked) prefill is not "
                                   "ported yet (ROADMAP.md)")
+    if "block_table" in cache:
+        return _uniform_prefill_slot_paged(cfg, params, cache, tokens,
+                                           true_len, slot, ctx)
     return _uniform_prefill_slot(cfg, params, cache, tokens, true_len, slot,
                                  ctx)
 
@@ -229,14 +325,23 @@ def _uniform_decode(cfg, params, h, position, ctx, cache):
     return h, {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}
 
 
+def _uniform_decode_paged(cfg, params, h, position, ctx, cache):
+    read_t, write_t = cache["block_table"], cache["write_table"]
+    for i, blk in enumerate(_layers(params, cfg)):
+        h = h + attn_decode_paged(cfg, blk["attn"], h, position, ctx,
+                                  cache["k"][i], cache["v"][i], read_t,
+                                  write_t, cache["len"])
+        h = h + ffn_apply(cfg, blk["ffn"], h)
+    return h, dict(cache, len=cache["len"] + 1)
+
+
 def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
                 ctx: ModelCtx = ModelCtx()):
     """One decode step.  tokens (B,1) -> (logits (B,1,V), new state)."""
     check_ported(cfg)
-    if "block_table" in cache:
-        raise NotImplementedError("paged decode is not ported yet "
-                                  "(ROADMAP.md)")
     h = layers.embed_tokens(params["embed"], tokens)
-    h, cache = _uniform_decode(cfg, params, h, cache["len"], ctx, cache)
+    decode = (_uniform_decode_paged if "block_table" in cache
+              else _uniform_decode)
+    h, cache = decode(cfg, params, h, cache["len"], ctx, cache)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return layers.lm_logits(cfg, params, h), cache

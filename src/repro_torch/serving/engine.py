@@ -1,5 +1,5 @@
 """Fixed-slot continuous-batching serving engine (port of
-``repro/serving/engine.py``, the dense greedy slice).
+``repro/serving/engine.py``, the greedy uniform-family slice).
 
 The decode batch has a fixed shape of ``n_slots`` cache rows, each slot
 holds one request, and per-slot lengths (``cache["len"]``) track each row's
@@ -14,11 +14,23 @@ call advances it by its measured wall time (the GPU synchronised first, so
 the clock times the work and not only its launch) or by a pinned per-call
 cost, and idle waits jump to the next arrival.
 
-This slice serves greedy decode over a dense 16-bit cache with one token
-per step.  Everything else raises ``NotImplementedError`` rather than being
-ignored: sampled requests (``temperature > 0``), paged and int8 layouts,
-``spec_k > 1``, ``prefill_chunk > 0``, a CF head, tracer/metrics
-registries, and prefill/decode engine roles (``ROADMAP.md`` queues them).
+The cache layout (:class:`~repro_torch.cache_layout.CacheLayout`) picks the
+backend: dense 16-bit (:class:`NativeBackend`), dense int8
+(:class:`Int8KVBackend`), paged 16-bit (:class:`PagedNativeBackend`) or
+paged int8 (:class:`PagedInt8Backend`).  With a paged backend the engine
+owns the host-side block accounting: a
+:class:`~repro_torch.serving.block_pool.BlockPool` and
+:class:`~repro_torch.serving.block_pool.SlotTables` pair whose tables it
+uploads whenever they change, prefix-sharing admission keyed by
+:func:`~repro_torch.serving.block_pool.prefix_keys`, the copy-on-write walk
+before each decode step, and queue-head pushback when the pool is full.
+
+This slice serves greedy decode with one token per step.  Everything else
+raises ``NotImplementedError`` rather than being ignored: sampled requests
+(``temperature > 0``), the generic int8 and paged compositions (other
+families, streaming prefill), ``spec_k > 1``, ``prefill_chunk > 0``, a CF
+head, tracer/metrics registries, and prefill/decode engine roles
+(``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
@@ -31,9 +43,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.cache_layout import CacheLayout, require_dense16
+from repro_torch.cache_layout import (CacheLayout, blocks_per_slot,
+                                      resolved_num_blocks)
+from repro_torch.models import kvquant
 from repro_torch.models import transformer as tf
 from repro_torch.serving import metrics as metrics_lib
+from repro_torch.serving import roofline
+from repro_torch.serving.block_pool import BlockPool, SlotTables, prefix_keys
 from repro_torch.serving.traffic import Clock, Request
 
 
@@ -90,6 +106,12 @@ class AdmissionQueue:
         """Evict and return the newest batch-tier entry (None if none)."""
         return self._tiers[False].pop() if self._tiers[False] else None
 
+    def pushback(self, item) -> None:
+        """Return an item to the *head* of its tier -- used when paged
+        admission fails on pool exhaustion: the request keeps its place in
+        line and retries after retirements free blocks."""
+        self._tiers[self._interactive(item[0])].appendleft(item)
+
 
 class SlotBackend:
     """A model behind the slot protocol: ``init_slots`` (slot-indexed state),
@@ -108,6 +130,10 @@ class SlotBackend:
         self.ctx = ctx if ctx is not None else tf.ModelCtx(attn_chunk=8)
         if decode_impl is not None:
             self.ctx = dataclasses.replace(self.ctx, decode_impl=decode_impl)
+        # the layout this backend realizes (paged backends set the full
+        # spec before this; make_backend stamps the resolved one)
+        if not hasattr(self, "layout"):
+            self.layout = CacheLayout(impl=self.ctx.decode_impl)
 
     def init_slots(self, n_slots: int, max_len: int) -> Dict:
         raise NotImplementedError
@@ -150,30 +176,159 @@ class NativeBackend(SlotBackend):
                                     true_len, slot, self.ctx)
 
 
+class Int8KVBackend(SlotBackend):
+    """Fused int8-KV path (:mod:`repro_torch.models.kvquant`): the cache is
+    int8 values + per-(position, head) scales and decode attention reads
+    the int8 values directly -- half the cache bytes per slot and no
+    dequantized copy."""
+
+    def __init__(self, cfg, params, ctx: Optional[tf.ModelCtx] = None,
+                 decode_impl: Optional[str] = None, device=None):
+        super().__init__(cfg, params, ctx, decode_impl, device)
+        self.layout = self.layout.replace(kv_bits=8)
+
+    def init_slots(self, n_slots: int, max_len: int) -> Dict:
+        return kvquant.init_model_quant_cache(self.cfg, n_slots, max_len,
+                                              device=self.device)
+
+    def _decode_impl(self, params, cache, tokens):
+        return kvquant.quant_decode_step(self.cfg, params, cache, tokens,
+                                         self.ctx)
+
+    def _prefill_impl(self, params, cache, tokens, true_len, slot):
+        logits, quant = kvquant.quant_prefill_kv(
+            self.cfg, params, {"tokens": tokens}, self.ctx)
+        S_p = tokens.shape[1]
+        for name, upd in zip(("k_q", "k_s", "v_q", "v_s"), quant):
+            cache[name][:, slot, :S_p] = upd[:, 0]
+        cache["len"][slot] = true_len
+        return logits[0, true_len - 1], cache
+
+
+class _PagedBackendMixin:
+    """Device-side plumbing of the paged backends: ``set_tables`` uploads
+    the host read/write tables; ``copy_block`` is the device half of
+    copy-on-write (one physical block's rows duplicated across every pooled
+    leaf, in place).  ``supports_prefix_sharing`` marks backends whose
+    prompt block content is a pure function of (prompt, engine constants),
+    the precondition for the hash index being sound."""
+
+    supports_prefix_sharing = True
+    _pool_leaves: tuple = ()
+
+    def set_tables(self, cache: Dict, read: np.ndarray,
+                   write: np.ndarray) -> Dict:
+        for name, tbl in (("block_table", read), ("write_table", write)):
+            cache[name] = torch.as_tensor(np.asarray(tbl, np.int32),
+                                          device=self.device)
+        return cache
+
+    def copy_block(self, cache: Dict, src: int, dst: int) -> Dict:
+        for name in self._pool_leaves:
+            cache[name][:, dst] = cache[name][:, src]
+        return cache
+
+
+class PagedNativeBackend(_PagedBackendMixin, SlotBackend):
+    """Paged 16-bit path: stacked per-layer KV in a shared pool
+    ``(L, N, bs, Hk, D)``; decode appends through the write table and
+    attends through the read table with the paged flash-decode kernel (or
+    the dense einsum over the gathered rows) -- see
+    :func:`transformer.init_paged_slots` / :func:`attn_decode_paged`."""
+
+    _pool_leaves = ("k", "v")
+
+    def __init__(self, cfg, params, ctx: Optional[tf.ModelCtx] = None,
+                 layout: CacheLayout = CacheLayout(kind="paged"),
+                 device=None):
+        self.layout = layout
+        super().__init__(cfg, params, ctx, layout.impl, device)
+
+    def init_slots(self, n_slots: int, max_len: int) -> Dict:
+        return tf.init_paged_slots(
+            self.cfg, n_slots, max_len,
+            num_blocks=resolved_num_blocks(self.layout, n_slots, max_len),
+            block_size=self.layout.block_size, device=self.device)
+
+    def _decode_impl(self, params, cache, tokens):
+        return tf.decode_step(self.cfg, params, cache, tokens, self.ctx)
+
+    def _prefill_impl(self, params, cache, tokens, true_len, slot):
+        return tf.prefill_into_slot(self.cfg, params, cache, tokens,
+                                    true_len, slot, self.ctx)
+
+
+class PagedInt8Backend(_PagedBackendMixin, SlotBackend):
+    """Paged int8 path: pooled int8 values + pooled per-(position, head)
+    scales, dequantized in the kernel through the block tables
+    (:mod:`repro_torch.models.kvquant`'s paged twins)."""
+
+    _pool_leaves = ("k_q", "k_s", "v_q", "v_s")
+
+    def __init__(self, cfg, params, ctx: Optional[tf.ModelCtx] = None,
+                 layout: CacheLayout = CacheLayout(kind="paged", kv_bits=8),
+                 device=None):
+        self.layout = layout
+        super().__init__(cfg, params, ctx, layout.impl, device)
+
+    def init_slots(self, n_slots: int, max_len: int) -> Dict:
+        return kvquant.init_paged_quant_cache(
+            self.cfg, n_slots, max_len,
+            num_blocks=resolved_num_blocks(self.layout, n_slots, max_len),
+            block_size=self.layout.block_size, device=self.device)
+
+    def _decode_impl(self, params, cache, tokens):
+        return kvquant.quant_decode_step(self.cfg, params, cache, tokens,
+                                         self.ctx)
+
+    def _prefill_impl(self, params, cache, tokens, true_len, slot):
+        logits, quant = kvquant.quant_prefill_kv(
+            self.cfg, params, {"tokens": tokens}, self.ctx)
+        for name, upd in zip(self._pool_leaves, quant):
+            tf.scatter_prompt_blocks(cache, name, upd[:, 0], slot)
+        cache["len"][slot] = true_len
+        return logits[0, true_len - 1], cache
+
+
 def make_backend(cfg, params, ctx: Optional[tf.ModelCtx] = None,
                  prefill_chunk: int = 0, *,
                  layout: Optional[CacheLayout] = None, device=None):
-    """Backend for ``layout`` (dense 16-bit in this slice).  ``layout.impl``
-    overrides the decode-attention path of ``ctx`` only when a layout was
-    passed explicitly, as in the JAX package."""
+    """Backend for ``layout``: dense 16-bit -> :class:`NativeBackend`,
+    dense int8 -> :class:`Int8KVBackend`, paged 16-bit ->
+    :class:`PagedNativeBackend`, paged int8 -> :class:`PagedInt8Backend`.
+    ``layout.impl`` overrides the decode-attention path of ``ctx`` only
+    when a layout was passed explicitly (the paged backends always take
+    it), as in the JAX package.  Streaming prefill with an int8 or paged
+    layout needs the JAX package's generic compositions, which are not
+    ported yet."""
     explicit = layout is not None
     if layout is None:
         layout = CacheLayout()
-    require_dense16(layout)
-    return NativeBackend(cfg, params, ctx, layout.impl if explicit else None,
-                         prefill_chunk, device=device)
-
-
-def _decode_state_bytes(cfg, cache_len: int) -> float:
-    """Modeled resident KV bytes of one dense 16-bit slot (the JAX serving
-    roofline's ``decode_state_bytes`` for attention layers: k and v at 2
-    bytes an element, whatever the model dtype)."""
-    return float(cfg.num_layers * cache_len * 2 * cfg.num_kv_heads
-                 * 2 * cfg.head_dim)
+    impl = layout.impl if explicit else None
+    if not layout.paged and not layout.quantized:
+        return NativeBackend(cfg, params, ctx, impl, prefill_chunk,
+                             device=device)
+    if prefill_chunk:
+        raise _not_ported("streaming (chunked) prefill with an int8 or "
+                          "paged layout (the Int8KVSlots / PagedSlots "
+                          "compositions)")
+    if not layout.paged:
+        backend = Int8KVBackend(cfg, params, ctx, impl, device=device)
+        backend.layout = layout.replace(kv_bits=8)
+        return backend
+    cls = PagedInt8Backend if layout.quantized else PagedNativeBackend
+    return cls(cfg, params, ctx, layout, device=device)
 
 
 class ServingEngine:
-    """Slot scheduler over a backend exposing init_slots/prefill/decode."""
+    """Slot scheduler over a backend exposing init_slots/prefill/decode.
+
+    With a paged backend (one with ``set_tables``) the engine also owns the
+    host-side block accounting: a :class:`BlockPool` + :class:`SlotTables`
+    pair whose read/write tables it uploads whenever they change,
+    prefix-sharing admission keyed by :func:`prefix_keys`, and the
+    per-step copy-on-write walk (:meth:`SlotTables.ensure_writable` ->
+    ``backend.copy_block``)."""
 
     def __init__(self, backend, ecfg: EngineConfig = EngineConfig(),
                  clock: Optional[Clock] = None, tracer=None, metrics=None,
@@ -188,10 +343,22 @@ class ServingEngine:
             raise _not_ported("speculative decode (spec_k > 1)")
         if ecfg.prefill_chunk:
             raise _not_ported("streaming (chunked) prefill")
-        require_dense16(ecfg.layout)
         self.backend, self.ecfg = backend, ecfg
         self.clock = clock if clock is not None else Clock()
         n = ecfg.n_slots
+        self.layout = getattr(backend, "layout", None) or ecfg.layout
+        self.pool: Optional[BlockPool] = None
+        self.tables: Optional[SlotTables] = None
+        self.prefix_sharing = False
+        if self.layout.paged and hasattr(backend, "set_tables"):
+            self.pool = BlockPool(
+                resolved_num_blocks(self.layout, n, ecfg.max_len),
+                self.layout.block_size)
+            self.tables = SlotTables(
+                self.pool, n, blocks_per_slot(self.layout, ecfg.max_len))
+            self.prefix_sharing = (
+                self.layout.prefix_sharing
+                and getattr(backend, "supports_prefix_sharing", False))
         self.cache = backend.init_slots(n, ecfg.max_len)
         self.queue = AdmissionQueue()
         self.slot_req: List[Optional[Request]] = [None] * n
@@ -206,6 +373,10 @@ class ServingEngine:
         self.records: List[metrics_lib.RequestRecord] = []
         self.decode_steps = 0
         self.prefills = 0
+        # KV frontier per slot (rows filled: prompt + generated so far); the
+        # paged write path makes position _slot_len[s] writable before each
+        # decode step lands a token there
+        self._slot_len = np.zeros(n, np.int64)
         self.max_concurrent = 0
         self._kv_bytes_sum = 0.0
 
@@ -223,12 +394,30 @@ class ServingEngine:
                            else time.perf_counter() - t0)
         return out
 
+    def _sync_tables(self) -> None:
+        if self.tables is not None and self.tables.dirty:
+            self.cache = self.backend.set_tables(
+                self.cache, self.tables.read, self.tables.write)
+            self.tables.dirty = False
+
+    def _share_seed(self) -> tuple:
+        """Cache-namespace seed for prefix hashing: everything besides the
+        prompt tokens that shapes a prompt's KV rows (model, backend and
+        numerics config).  Deterministic within a process; the keys differ
+        from the JAX package's, which hashes its own class names."""
+        return (self.backend.cfg.name, self.layout.kv_bits,
+                type(self.backend).__name__, repr(self.backend.ctx))
+
     def _resident_kv_bytes(self) -> float:
-        """Modeled resident decode-state bytes (every slot at max_len)."""
+        """Modeled resident decode-state bytes right now (paged: pool
+        occupancy; dense: every slot pinned at max_len)."""
         cfg = getattr(self.backend, "cfg", None)
         if cfg is None:
             return 0.0
-        return self.ecfg.n_slots * _decode_state_bytes(cfg, self.ecfg.max_len)
+        return roofline.resident_kv_bytes(
+            cfg, self.ecfg.n_slots, self.ecfg.max_len, self.layout,
+            used_blocks=self.pool.used_blocks if self.pool is not None
+            else 0)
 
     # -- scheduler ops -------------------------------------------------------
 
@@ -263,10 +452,25 @@ class ServingEngine:
         return True
 
     def _start(self, slot: int, req: Request,
-               rec: metrics_lib.RequestRecord) -> None:
+               rec: metrics_lib.RequestRecord) -> bool:
         """Prefill-on-arrival into one slot; the first generated token falls
-        out of the prefill logits."""
+        out of the prefill logits.  Returns False -- request untouched --
+        when the block pool cannot map the request yet (paged admission):
+        the caller requeues it behind the blocks that retiring slots
+        free."""
         prompt = np.asarray(req.prompt, np.int64)
+        if self.tables is not None:
+            bs = self.layout.block_size
+            span = -(-min(len(prompt) + req.max_new_tokens,
+                          self.ecfg.max_len) // bs)
+            if self.prefix_sharing:
+                keys, tail = prefix_keys(req.prompt, bs,
+                                         self._share_seed())
+            else:
+                keys, tail = [], None
+            if not self.tables.admit(slot, keys, tail, span):
+                return False
+            self._sync_tables()
         rec.admitted = self.clock.now
         s_pad = _bucket(len(prompt), self.ecfg.prompt_quantum,
                         self.ecfg.max_len)
@@ -277,6 +481,10 @@ class ServingEngine:
             lambda: self.backend.prefill(self.cache, padded, len(prompt),
                                          slot))
         self.prefills += 1
+        self._slot_len[slot] = len(prompt)
+        if self.tables is not None:
+            # publish this prompt's self-computed blocks for later sharers
+            self.tables.seal_prompt(slot)
         first = int(torch.argmax(logits_row))   # first maximum, as jnp
         rec.first_token = self.clock.now
         rec.tokens_out = 1
@@ -284,12 +492,15 @@ class ServingEngine:
         budget = min(req.max_new_tokens, self.ecfg.max_len - len(prompt))
         if first == req.eos_id or budget <= 1:
             rec.finished = self.clock.now       # slot never occupied
-            return
+            if self.tables is not None:
+                self.tables.release(slot)
+            return True
         self.slot_req[slot] = req
         self.slot_rec[slot] = rec
         self.slot_remaining[slot] = budget - 1
         self.slot_tokens[slot, 0] = first
         self._tokens_dirty = True           # host wrote a slot: re-upload
+        return True
 
     def _refill(self) -> None:
         free = [s for s in range(self.ecfg.n_slots)
@@ -299,10 +510,32 @@ class ServingEngine:
         for s in free:
             while self.queue and self.slot_req[s] is None:
                 req, rec = self.queue.popleft()
-                self._start(s, req, rec)        # may finish instantly (EOS)
+                if self._start(s, req, rec):    # may finish instantly (EOS)
+                    continue
+                # paged admission failed: not enough free blocks.  An empty
+                # pool that still cannot cover the request never will --
+                # reject; otherwise park it at the queue head until
+                # retiring slots return their blocks
+                if self.pool is not None and self.pool.used_blocks == 0:
+                    rec.rejected = True
+                    continue
+                self.queue.pushback((req, rec))
+                self.max_concurrent = max(self.max_concurrent, self.n_active)
+                return
         self.max_concurrent = max(self.max_concurrent, self.n_active)
 
     def _decode_once(self) -> None:
+        if self.tables is not None:
+            # make every active slot's KV frontier exclusively owned before
+            # the step writes there: COW off shared tails, claim sole-owner
+            # sealed blocks, then upload the changed tables once
+            for s in range(self.ecfg.n_slots):
+                if self.slot_req[s] is None:
+                    continue
+                cow = self.tables.ensure_writable(s, int(self._slot_len[s]))
+                if cow is not None:
+                    self.cache = self.backend.copy_block(self.cache, *cow)
+            self._sync_tables()
         if self._tokens_dirty or self._tokens_dev is None:
             self._tokens_dev = torch.as_tensor(self.slot_tokens,
                                                device=self.backend.device)
@@ -326,10 +559,13 @@ class ServingEngine:
             rec.tokens_out += 1
             self.slot_remaining[s] -= 1
             self.slot_tokens[s, 0] = tok
+            self._slot_len[s] += 1          # this step's token landed
             if tok == req.eos_id or self.slot_remaining[s] <= 0:
                 rec.finished = self.clock.now
                 self.slot_req[s] = None
                 self.slot_rec[s] = None
+                if self.tables is not None:
+                    self.tables.release(s)  # refcounts back to the pool
 
     # -- run loop ------------------------------------------------------------
 
@@ -359,6 +595,15 @@ class ServingEngine:
         summary["max_concurrent_slots"] = self.max_concurrent
         summary["kv_bytes_per_step"] = (
             self._kv_bytes_sum / max(self.decode_steps, 1))
+        if self.pool is not None:
+            summary["paged"] = {
+                "num_blocks": self.pool.num_blocks,
+                "block_size": self.pool.block_size,
+                "peak_used_blocks": self.pool.peak_used,
+                "shared_hits": self.pool.shared_hits,
+                "cow_events": self.pool.cow_events,
+                "seal_count": self.pool.seal_count,
+            }
         return self.outputs, self.records, summary
 
 

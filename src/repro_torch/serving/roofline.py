@@ -1,0 +1,67 @@
+"""Modeled resident decode-state bytes (the byte models of
+``repro/serving/roofline.py`` that the engine summary reads).
+
+``ServingEngine`` integrates :func:`resident_kv_bytes` over decode steps
+into ``summary["kv_bytes_per_step"]``: every slot pinned at ``max_len``
+rows for a dense layout, the mapped pool blocks for a paged one.  Bytes
+are priced at 2 per element (bf16) whatever the model dtype, and int8 at 1
+plus an f32 scale per (position, head), as in the JAX package, so the
+summary equals the JAX engine's under every layout.  The JAX module's
+time terms (TPU-model FLOP and bandwidth constants) are not copied: no
+speed figure of that chip applies here.
+"""
+from __future__ import annotations
+
+from repro_torch.config import ArchConfig
+
+
+def _kv_pos_bytes(head_dim: int, n_kv: int, kv_bits: int) -> float:
+    """Bytes per cached (position, k+v) across the kv heads."""
+    if kv_bits == 8:
+        per_head = head_dim + 4          # int8 values + one f32 scale
+    elif kv_bits == 16:
+        per_head = 2 * head_dim
+    else:
+        raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
+    return 2 * n_kv * per_head           # k and v
+
+
+def decode_state_bytes(cfg: ArchConfig, cache_len: int,
+                       kv_bits: int = 16) -> float:
+    """Resident decode-state bytes for ONE slot at ``cache_len`` positions.
+    The port serves attention layers only (the uniform family); other
+    layer kinds raise until their families are ported."""
+    kinds = cfg.layer_kinds()
+    if set(kinds) != {"attn"}:
+        raise NotImplementedError(
+            f"decode-state bytes of {sorted(set(kinds) - {'attn'})} layers "
+            "are not ported yet (ROADMAP.md)")
+    return len(kinds) * cache_len * _kv_pos_bytes(cfg.head_dim,
+                                                  cfg.num_kv_heads, kv_bits)
+
+
+def _paged_split_bytes(cfg: ArchConfig, max_len: int, kv_bits: int):
+    """(bytes per pooled KV *position*, per-slot bytes of state that stays
+    slot-resident under the paged layout).  Only full-cache self-attention
+    rows page (the JAX package keeps window-bounded rings and cross-KV
+    slot-resident; the ported uniform family has neither)."""
+    kv_pos = _kv_pos_bytes(cfg.head_dim, cfg.num_kv_heads, kv_bits)
+    n_full_attn = sum(1 for kind in cfg.layer_kinds() if kind == "attn")
+    paged_pos = n_full_attn * kv_pos
+    resident = decode_state_bytes(cfg, max_len, kv_bits) \
+        - max_len * paged_pos
+    return paged_pos, resident
+
+
+def resident_kv_bytes(cfg: ArchConfig, n_slots: int, max_len: int,
+                      layout, used_blocks: int) -> float:
+    """Resident decode-state bytes of a serving batch under ``layout``.
+
+    Dense: every slot pins ``max_len`` KV rows whether live or not.
+    Paged: the pooled layers cost only the ``used_blocks`` actually mapped,
+    plus the per-slot resident remainder."""
+    if not layout.paged:
+        return n_slots * decode_state_bytes(cfg, max_len, layout.kv_bits)
+    paged_pos, resident = _paged_split_bytes(cfg, max_len, layout.kv_bits)
+    return (used_blocks * layout.block_size * paged_pos
+            + n_slots * resident)

@@ -44,6 +44,22 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+# every module of the serving slices, so the walks below cannot go vacuous
+SLICE_MODULES = (
+    "cache_layout.py", "convert.py", "kernels/_build.py",
+    "kernels/decode_attention.py", "kernels/flash_attention.py",
+    "kernels/ops.py", "kernels/ref.py", "models/attention.py",
+    "models/kvquant.py", "models/transformer.py", "serving/block_pool.py",
+    "serving/engine.py", "serving/roofline.py", "launch/serve.py",
+)
+
+
+def test_walk_covers_the_slice_modules():
+    walked = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+              for p in PORT_FILES if p.name != "chip_smoke.py"}
+    assert set(SLICE_MODULES) <= walked, set(SLICE_MODULES) - walked
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):

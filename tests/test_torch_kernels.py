@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import decode_attention as jdk
 from repro.kernels import ops as jops
 from repro_torch.cache_layout import CacheLayout
 from repro_torch.kernels import ops as tops
@@ -40,6 +41,27 @@ DECODE_CASES = [
     (3, 3, 2, 2, 40, [2, 30, 38], [3, 2, 1], 6, False),     # k rows, window
 ]
 
+# int8 caches: (B, Sq, H, Hk, S, lengths, q_lens); lengths past S are the
+# free serving slots, which keep counting (S a multiple of BLOCK there: the
+# Pallas kernel pads S up to its block and would attend the pad rows)
+QUANT_CASES = [
+    (4, 1, 2, 2, 40, [0, 1, 40, 17], None),
+    (4, 1, 8, 2, 48, [0, 49, 53, 7], None),                 # GQA, len > S
+    (4, 3, 2, 2, 40, [0, 5, 20, 38], [3, 1, 2, 3]),         # k rows
+]
+
+# paged caches: (B, Sq, H, Hk, nb, bs, lengths, q_lens, window, ring);
+# virtual space nb * bs, shuffled physical blocks, dead entries null
+PAGED_CASES = [
+    (4, 1, 2, 2, 5, 8, [0, 1, 40, 17], None, 0, False),     # len 0 / 1 / S
+    (4, 1, 8, 2, 5, 8, [0, 0, 0, 0], None, 0, False),       # all empty, GQA
+    (4, 1, 2, 2, 5, 8, [0, 1, 5, 40], None, 16, False),     # window > len
+    (4, 1, 2, 2, 2, 8, [0, 3, 16, 29], None, 12, True),     # ring wraps
+    (4, 3, 2, 2, 5, 8, [0, 5, 20, 38], [3, 1, 2, 3], 0, False),  # k rows
+    (4, 2, 8, 2, 4, 4, [1, 7, 16, 25], [2, 1, 2, 2], 12, True),  # k, ring
+    (3, 3, 2, 2, 5, 8, [2, 30, 38], [3, 2, 1], 6, False),   # k, window
+]
+
 D = 32
 BLOCK = 16
 
@@ -62,6 +84,56 @@ def _decode_inputs(case, seed=0):
             _rand(rng, B, S, Hk, D), np.asarray(lengths, np.int32),
             None if q_lens is None else np.asarray(q_lens, np.int32))
     return arrs, dict(window=window, ring=ring)
+
+
+def _quant_inputs(case, seed=0):
+    B, Sq, H, Hk, S, lengths, q_lens = case
+    rng = np.random.default_rng(seed)
+
+    def vals():
+        return rng.integers(-127, 128, (B, S, Hk, D)).astype(np.int8)
+
+    def scales():
+        return rng.uniform(0.005, 0.05, (B, S, Hk)).astype(np.float32)
+
+    return (_rand(rng, B, Sq, H, D), vals(), scales(), vals(), scales(),
+            np.asarray(lengths, np.int32),
+            None if q_lens is None else np.asarray(q_lens, np.int32))
+
+
+def paged_tables(lengths, q_lens, nb, bs, ring, seed=0):
+    """(B, nb) tables over a shuffled pool: each slot's live blocks get
+    distinct physical ids from a permutation of 1..N-1; dead entries (past
+    the last live position) point at the null block 0.  Returns (tables,
+    N) with N = B * nb + 4 (spare blocks and block 0 hold garbage)."""
+    B = len(lengths)
+    N = B * nb + 4
+    perm = np.random.default_rng(seed).permutation(np.arange(1, N))
+    tables = np.zeros((B, nb), np.int32)
+    for b, n in enumerate(lengths):
+        last = n + (1 if q_lens is None else q_lens[b]) - 1
+        live = min(-(-min(last, nb * bs) // bs), nb)
+        tables[b, :live] = perm[b * nb:b * nb + live]
+    return tables, N
+
+
+def _paged_inputs(case, seed=0, quant=False):
+    B, Sq, H, Hk, nb, bs, lengths, q_lens, window, ring = case
+    rng = np.random.default_rng(seed)
+    tables, N = paged_tables(lengths, q_lens, nb, bs, ring, seed)
+    q = _rand(rng, B, Sq, H, D)
+    if quant:
+        pools = (rng.integers(-127, 128, (N, bs, Hk, D)).astype(np.int8),
+                 rng.uniform(0.005, 0.05, (N, bs, Hk)).astype(np.float32),
+                 rng.integers(-127, 128, (N, bs, Hk, D)).astype(np.int8),
+                 rng.uniform(0.005, 0.05, (N, bs, Hk)).astype(np.float32))
+    else:
+        # blocks no table maps (block 0 and the spares) hold large garbage
+        unused = ~np.isin(np.arange(N), tables[tables > 0])
+        pools = tuple(_rand(rng, N, bs, Hk, D) * np.where(unused, 10.0, 1.0)[
+            :, None, None, None].astype(np.float32) for _ in range(2))
+    return (q, pools, tables, np.asarray(lengths, np.int32),
+            None if q_lens is None else np.asarray(q_lens, np.int32))
 
 
 def _t(x):
@@ -128,10 +200,74 @@ def test_ref_impl_equals_default_on_cpu():
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_flash_decode_quant_matches_pallas(case):
+    q, k_q, k_s, v_q, v_s, lengths, q_lens = _quant_inputs(case)
+    want = np.asarray(jdk.flash_decode_attention_quant(
+        *(_j(x) for x in (q, k_q, k_s, v_q, v_s, lengths)), block_k=BLOCK,
+        interpret=True, q_lens=_j(q_lens)))
+    args = [_t(x) for x in (q, k_q, k_s, v_q, v_s, lengths)]
+    got = tops.flash_decode_quant(*args, q_lens=_t(q_lens))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    # the layout-keyed entry point: flash (plain on CPU) == ref == dense
+    cache = dict(zip(("k_q", "k_s", "v_q", "v_s"), args[1:5]))
+    for impl in ("flash", "ref", "dense"):
+        out = tops.decode_attention(args[0], cache, args[5],
+                                    q_lens=_t(q_lens),
+                                    layout=CacheLayout(kv_bits=8, impl=impl))
+        np.testing.assert_allclose(out.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_flash_decode_paged_matches_pallas(case):
+    window, ring = case[-2:]
+    q, (kp, vp), tables, lengths, q_lens = _paged_inputs(case)
+    want = np.asarray(jdk.flash_decode_attention_paged(
+        *(_j(x) for x in (q, kp, vp, tables, lengths)), window=window,
+        ring=ring, interpret=True, q_lens=_j(q_lens)))
+    got = tops.decode_attention(
+        _t(q), {"k": _t(kp), "v": _t(vp), "block_table": _t(tables)},
+        _t(lengths), q_lens=_t(q_lens),
+        layout=CacheLayout(kind="paged", impl="flash", block_size=case[5],
+                           window=window, ring=ring))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    for impl in ("ref", "dense"):
+        out = tops.decode_attention(
+            _t(q), {"k": _t(kp), "v": _t(vp), "block_table": _t(tables)},
+            _t(lengths), q_lens=_t(q_lens),
+            layout=CacheLayout(kind="paged", impl=impl, window=window,
+                               ring=ring))
+        np.testing.assert_allclose(out.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", [c for c in PAGED_CASES if not c[-2]])
+def test_flash_decode_paged_quant_matches_pallas(case):
+    q, pools, tables, lengths, q_lens = _paged_inputs(case, quant=True)
+    want = np.asarray(jdk.flash_decode_attention_paged_quant(
+        _j(q), *(_j(x) for x in pools), _j(tables), _j(lengths),
+        interpret=True, q_lens=_j(q_lens)))
+    cache = dict(zip(("k_q", "k_s", "v_q", "v_s"), map(_t, pools)),
+                 block_table=_t(tables))
+    for impl in ("flash", "ref", "dense"):
+        out = tops.decode_attention(
+            _t(q), cache, _t(lengths), q_lens=_t(q_lens),
+            layout=CacheLayout(kind="paged", kv_bits=8, impl=impl,
+                               block_size=case[5]))
+        np.testing.assert_allclose(out.numpy(), want, atol=TOL, rtol=0)
+
+
 def test_unported_layouts_raise():
+    """Every (kind, kv_bits, impl) cell of the layout matrix is served now;
+    what the int8 kernels do not take still raises, as in the JAX package:
+    an int8 layout with a window or ring mask."""
     q = torch.zeros(1, 1, 2, D)
-    cache = {"k": torch.zeros(1, 8, 2, D), "v": torch.zeros(1, 8, 2, D)}
-    for layout in (CacheLayout(kind="paged"), CacheLayout(kv_bits=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    cache = {"k_q": torch.zeros(1, 8, 2, D, dtype=torch.int8),
+             "k_s": torch.ones(1, 8, 2), "v_q": torch.zeros(
+                 1, 8, 2, D, dtype=torch.int8), "v_s": torch.ones(1, 8, 2),
+             "block_table": torch.zeros(1, 1, dtype=torch.int32)}
+    for layout in (CacheLayout(kv_bits=8, window=4),
+                   CacheLayout(kind="paged", kv_bits=8, window=4, ring=True,
+                               block_size=8)):
+        with pytest.raises(ValueError, match="full-cache masking"):
             tops.decode_attention(q, cache, torch.ones(1, dtype=torch.int32),
                                   layout=layout)
