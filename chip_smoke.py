@@ -19,7 +19,12 @@ failing the run with a non-zero exit when its check fails:
    version and, where one exists, of one PyTorch call computing the same
    function (``scaled_dot_product_attention`` with the equivalent boolean
    mask, a yardstick the port never calls), plus for the paged kernels the
-   dense kernel on the equivalent dense cache;
+   dense kernel on the equivalent dense cache.  The gradient-compression
+   kernels (onebit quantize and dequantize, top-k sparsify) likewise, on
+   test sizes, tied values and the training phase's full flat gradient:
+   bytes, kept values and residuals exact, scales within 1e-6 relative;
+   timed beside their plain versions (no PyTorch call computes them).
+   Every kernel wrapper must raise on inputs that require grad;
 3. serving RecLLM-base at full width in bf16 (random weights from a seeded
    generator) through ``repro_torch.serving``: 16 Poisson requests on 8
    slots of 512 positions with both attention kernels on, under the dense
@@ -37,7 +42,18 @@ failing the run with a non-zero exit when its check fails:
    copy on write, drain the pool and match the dense streams.  Each
    layout's workload once more under ``torch.profiler`` gives the device's
    busy share, its top kernels and the attention kernels' device time per
-   launch on the main path.
+   launch on the main path;
+4. training RecLLM-base at full width in float32 (178.0M parameters, the
+   full dataset, batch 32 x seq 32) through ``repro_torch.runtime.trainer``'s
+   data-parallel step on a one-rank NCCL group: 20 steps each under flat,
+   hierarchical, 1-bit and top-k sync with the kernels, then 1-bit and
+   top-k with the plain versions, all under deterministic algorithms.
+   Each run resets the launch counters and must launch each compression
+   kernel the number of times a step implies; every loss must be finite;
+   top-k's kernel run must equal its plain run bit for bit (1-bit's gap,
+   from its scales' last bits, is reported).  One step's gradient through the kernel sync and
+   the plain sync: 1-bit bits equal and values within 1e-6 of the largest,
+   top-k equal.  HR@10/NDCG@10 after each run.
 
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
@@ -47,6 +63,7 @@ non-zero before printing either.
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -56,6 +73,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12              # H100 SXM float32, outside tensor cores
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 
 # the cases of tests/test_torch_kernels.py (head_dim 32)
@@ -106,6 +124,12 @@ KERNELS = {
     "flash_decode_paged_quant": (
         "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/decode_attention.py:416"),
+    "onebit_quantize": ("src/repro_torch/kernels/csrc/grad_compress.cu",
+                        "src/repro/kernels/grad_compress.py:37"),
+    "onebit_dequantize": ("src/repro_torch/kernels/csrc/grad_compress.cu",
+                          "src/repro/kernels/grad_compress.py:59"),
+    "topk_sparsify": ("src/repro_torch/kernels/csrc/topk_sparsify.cu",
+                      "src/repro/kernels/topk_sparsify.py:34"),
 }
 NO_LIBRARY = {
     "flash_decode_quant": "no PyTorch call attends over int8 values with "
@@ -113,6 +137,11 @@ NO_LIBRARY = {
     "flash_decode_paged": "no PyTorch call attends through a block table",
     "flash_decode_paged_quant": "no PyTorch call attends through a block "
                                 "table over int8 values with scales",
+    "onebit_quantize": "no PyTorch call packs sign bits with per-tile "
+                       "mean-|g| scales",
+    "onebit_dequantize": "no PyTorch call unpacks sign bits to +-scale",
+    "topk_sparsify": "no PyTorch call thresholds rows at the k-th largest "
+                     "distinct magnitude",
 }
 
 
@@ -128,12 +157,17 @@ def check(ok, msg):
 def _wrappers():
     """Kernel name -> the wrapper that counts its launches."""
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import grad_compress as gc
+    from repro_torch.kernels import topk_sparsify as tk
     from repro_torch.kernels.flash_attention import flash_attention
     return {"flash_attention": flash_attention,
             "flash_decode": dk.flash_decode_attention,
             "flash_decode_quant": dk.flash_decode_attention_quant,
             "flash_decode_paged": dk.flash_decode_attention_paged,
-            "flash_decode_paged_quant": dk.flash_decode_attention_paged_quant}
+            "flash_decode_paged_quant": dk.flash_decode_attention_paged_quant,
+            "onebit_quantize": gc.onebit_quantize,
+            "onebit_dequantize": gc.onebit_dequantize,
+            "topk_sparsify": tk.topk_sparsify}
 
 
 def reset_launches():
@@ -795,12 +829,404 @@ def phase_serving(torch):
     return report
 
 
+# -- gradient compression (training) -----------------------------------------
+
+# the cases of tests/test_torch_compress.py
+ONEBIT_CASES = [(8 * 512, 512), (8 * 2048, 512), (8 * 1024, 1024)]  # N, block
+TOPK_CASES = [(4096, 512, 8), (8192, 2048, 32), (2048, 256, 1)]   # N, block, k
+SCALE_RTOL = 1e-6        # 1-bit scales: a mean of 8 * block |g|, any order
+TIED = (0.0, 0.5, -0.5, 1.0, -1.0, 2.0)   # magnitudes that tie within a row
+
+
+def full_width_size(cfg, n_users, cf_dim=64):
+    """RecLLM's parameter count: tied embedding, stacked blocks (q, k, v,
+    o; gated MLP; two RMSNorm scales a layer), final norm, the CF tables
+    and the fusion gate."""
+    d, L = cfg.d_model, cfg.num_layers
+    layer = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d \
+        + 3 * d * cfg.d_ff + 2 * d
+    return (cfg.padded_vocab * d + L * layer + d
+            + (cfg.padded_vocab + n_users) * cf_dim + 1)
+
+
+def train_config():
+    """The training phase's RecLLM-base (the full dataset's vocab, padded
+    to 64, float32, as ``launch/train_recsys.py --full`` sets it)."""
+    from repro_torch.config import get_arch
+    from repro_torch.recsys import dataset
+    n_items = max(64, int(dataset.FULL_ITEMS * 1.0))
+    n_users = max(32, int(dataset.FULL_USERS * 1.0))
+    cfg = dataclasses.replace(get_arch("recllm-base"), vocab_size=n_items + 3,
+                              vocab_pad_to=64, dtype="float32")
+    return cfg, n_users
+
+
+def _pad(n, mult):
+    return n + (-n) % mult
+
+
+def phase_compress_kernels(torch, report):
+    """The compression kernels against their plain versions, then timed at
+    the training phase's flat size; rows added to ``report["timing"]``."""
+    from repro_torch.kernels import grad_compress as gc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_sparsify as tk
+    from repro_torch.runtime.trainer import DPSyncConfig
+    inp = Inputs(torch)
+    dev = inp.dev
+    scfg = DPSyncConfig()
+    cfg, n_users = train_config()
+    n_params = full_width_size(cfg, n_users)
+    n_onebit = _pad(n_params, 8 * scfg.block)
+    n_topk = _pad(n_params, scfg.topk_block)
+
+    def data(n, kind):
+        if kind == "normal":
+            return inp.randn(n, dtype=torch.float32)
+        pick = torch.randint(0, len(TIED), (n,), generator=inp.gen,
+                             device=dev)
+        return torch.tensor(TIED, device=dev)[pick]
+
+    def onebit_case(n, block, kind):
+        g2d = data(n, kind).reshape(8, n // 8)
+        pk, sk = gc.onebit_quantize(g2d, block)
+        pr, sr = ref.onebit_quantize(g2d, block)
+        check(torch.equal(pk, pr), f"onebit_quantize N={n} block={block} "
+              f"{kind}: packed bytes differ from the plain version")
+        rel = float(((sk - sr).abs() / sr.abs().clamp(min=1e-30)).max())
+        check(rel <= SCALE_RTOL, f"onebit_quantize N={n} block={block} "
+              f"{kind}: scales {rel} relative from the plain version")
+        dk = gc.onebit_dequantize(torch.stack([pk, pr]),
+                                  torch.stack([sk, sr]), block)
+        dr = ref.onebit_dequantize(torch.stack([pk, pr]),
+                                   torch.stack([sk, sr]), block)
+        check(torch.equal(dk, dr), f"onebit_dequantize N={n} block={block} "
+              f"{kind}: differs from the plain version")
+        return rel, float((sk - sr).abs().max()), float((dk - dr).abs().max())
+
+    def topk_case(n, block, k, kind):
+        x2d = data(n, kind).reshape(n // block, block)
+        kk, rk = tk.topk_sparsify(x2d, k)
+        kr, rr = ref.topk_sparsify_rounds(x2d, k)
+        check(torch.equal(kk, kr) and torch.equal(rk, rr),
+              f"topk_sparsify N={n} block={block} k={k} {kind}: kept or "
+              "residual differ from the plain version")
+        return max(float((kk - kr).abs().max()), float((rk - rr).abs().max()))
+
+    worst = 0.0
+    for kind in ("normal", "tied"):
+        for n, block in ONEBIT_CASES:
+            worst = max(worst, onebit_case(n, block, kind)[0])
+        for n, block, k in TOPK_CASES:
+            topk_case(n, block, k, kind)
+    row = torch.tensor([5.0, -5.0, 3.0, 1.0, 0.5, -0.25, 0.125, 0.0],
+                       device=dev)
+    kept, _ = tk.topk_sparsify(row[None], 2)
+    check(kept[0, :4].tolist() == [5.0, -5.0, 3.0, 0.0],
+          f"topk_sparsify keeps {kept[0].tolist()} of the tie row (want the "
+          "distinct-magnitude threshold 3)")
+    # max_abs_err of each kernel's row: its full-width "normal" case
+    full_rel, full_abs, deq_abs = onebit_case(n_onebit, scfg.block, "normal")
+    onebit_case(n_onebit, scfg.block, "tied")
+    topk_abs = topk_case(n_topk, scfg.topk_block, scfg.k, "normal")
+    topk_case(n_topk, scfg.topk_block, scfg.k, "tied")
+    print(f"[kernels] compression: {2 * len(ONEBIT_CASES) + 2} onebit and "
+          f"{2 * len(TOPK_CASES) + 2} topk cases (normal and tied values, "
+          f"full width N={n_onebit:,} / {n_topk:,}) equal the plain versions "
+          f"(bytes, kept, residual exact; scales within "
+          f"{max(worst, full_rel):.3g} relative, tolerance {SCALE_RTOL}); "
+          "the tie row keeps [5, -5, 3]")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    g2d = (inp.randn(n_onebit, dtype=torch.float32) * 1e-3).reshape(8, -1)
+    packed, scales = gc.onebit_quantize(g2d, scfg.block)
+    x2d = inp.randn(n_topk, dtype=torch.float32).reshape(-1, scfg.topk_block)
+    n1, nb = n_onebit, n_onebit // (8 * scfg.block)
+    rows = {
+        "onebit_quantize": (
+            lambda: gc.onebit_quantize(g2d, scfg.block),
+            lambda: ref.onebit_quantize(g2d, scfg.block),
+            4 * n1 + n1 // 8 + 4 * nb, 2 * n1, full_abs, SCALE_RTOL,
+            f"(8, {n1 // 8:,}) f32 -> u8 + {nb:,} scales, block "
+            f"{scfg.block}"),
+        "onebit_dequantize": (
+            lambda: gc.onebit_dequantize(packed, scales, scfg.block),
+            lambda: ref.onebit_dequantize(packed, scales, scfg.block),
+            n1 // 8 + 4 * nb + 4 * n1, n1, deq_abs, 0.0,
+            f"({n1 // 8:,},) u8 + {nb:,} scales -> (8, {n1 // 8:,}) f32, "
+            "one payload"),
+        "topk_sparsify": (
+            lambda: tk.topk_sparsify(x2d, scfg.k),
+            lambda: ref.topk_sparsify_rounds(x2d, scfg.k),
+            12 * n_topk, scfg.k * n_topk, topk_abs, 0.0,
+            f"({n_topk // scfg.topk_block:,}, {scfg.topk_block}) f32, "
+            f"k={scfg.k}"),
+    }
+    # tol: the scales' relative tolerance for quantize (its bytes are
+    # exact); dequantize and top-k are held exactly
+    for name, (fn, plain, nbytes, ops, err, tol, shape) in rows.items():
+        t = {"shape": shape, "max_abs_err": err, "tol": tol,
+             "ms": _time_ms(torch, fn, flush),
+             "plain_ms": _time_ms(torch, plain, flush),
+             "library_ms": None, "library_note": NO_LIBRARY[name],
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": ops / F32_OPS_PER_S * 1e3}
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        report["timing"][name] = [t]
+        print(f"[time {name}] {shape}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, no library call, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}), max abs err "
+              f"{err:.3g}")
+    return report
+
+
+def check_autograd_guard(torch):
+    """Every kernel wrapper raises on the card when autograd would record
+    the call (the kernels have no backward): a training caller gets an
+    error, not outputs that silently carry no gradient."""
+    from repro_torch.kernels import ref
+    inp = Inputs(torch)
+    calls = {k: cases[0][1](torch.float32)[::2]      # (fn, args)
+             for k, cases in _case_builders(inp).items()}
+    g = inp.randn(8 * 512, dtype=torch.float32)
+    packed, scales = ref.onebit_quantize(g.reshape(8, -1), 512)
+    wrappers = _wrappers()
+    calls.update({
+        "onebit_quantize": (wrappers["onebit_quantize"], (g.reshape(8, -1),)),
+        "onebit_dequantize": (wrappers["onebit_dequantize"],
+                              (packed, scales)),
+        "topk_sparsify": (wrappers["topk_sparsify"], (g.reshape(4, -1), 8))})
+    for name, (fn, args) in calls.items():
+        leaf = args[0] if args[0].is_floating_point() else args[1]
+        leaf.requires_grad_()
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: {e}")
+        else:
+            raise SmokeFailure(f"{name} ran on inputs that require grad")
+        finally:
+            leaf.requires_grad_(False)
+    print(f"[kernels] all {len(calls)} wrappers raise on CUDA inputs that "
+          "require grad (no backward kernels yet)")
+
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 32, 32
+# (name, sync mode, use_kernel) in the order they run, each from one init
+TRAIN_RUNS = [("flat", "flat", True), ("hierarchical", "hierarchical", True),
+              ("onebit", "onebit", True), ("topk", "topk", True),
+              ("onebit_plain", "onebit", False),
+              ("topk_plain", "topk", False)]
+# kernel launches per step each run's design implies: 1-bit quantizes the
+# local gradient once and dequantizes the local and the gathered payloads
+# in one launch each; top-k sparsifies once
+TRAIN_LAUNCHES = {"onebit": {"onebit_quantize": 1, "onebit_dequantize": 2},
+                  "topk": {"topk_sparsify": 1}}
+# The phase runs under deterministic algorithms, so a kernel run and its
+# plain run part only where the kernels' results differ from the plain
+# versions'.  Top-k's never do: its two runs must be bit-equal.  1-bit's
+# scales differ in the last bits (within SCALE_RTOL), and a later step can
+# turn that into a sign flip near zero, which Adam makes a full step: the
+# gap of its runs is reported, not held; the one-gradient sync check holds
+# the 1-bit kernels.
+TRAJ_EQUAL = ("topk",)
+
+
+def phase_training(torch):
+    import math
+
+    import torch.distributed as dist
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import compression, hierarchical
+    from repro_torch.models.transformer import ModelCtx
+    from repro_torch.optimizer import adamw
+    from repro_torch.recsys import dataset, metrics, model as recmodel
+    from repro_torch.runtime import trainer
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ds = dataset.generate(scale=1.0, seed=0)
+    cfg, n_users = train_config()
+    check((ds.n_users, ds.n_items + 3) == (n_users, cfg.vocab_size),
+          "dataset sizes differ from the training config")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in dataset.seq_batches(ds, TRAIN_BATCH, TRAIN_SEQ,
+                                            steps=TRAIN_STEPS, seed=7)]
+    toks, gold, lens = dataset.eval_examples(ds, seq_len=TRAIN_SEQ,
+                                             max_users=256)
+    excl = torch.from_numpy(metrics.history_exclusion(
+        toks, cfg.padded_vocab)).to(dev)
+    toks, gold, lens = (torch.from_numpy(a).to(dev)
+                        for a in (toks, gold, lens))
+    data_s = time.perf_counter() - t0
+    mesh = hierarchical.init_world_of_one(dev)
+    params0 = recmodel.init_recllm(
+        cfg, ds.n_users, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(x.numel() for x in tree_leaves(params0))
+    check(n_params == full_width_size(cfg, n_users),
+          f"{n_params} parameters, want {full_width_size(cfg, n_users)}")
+    # the optimizer settings of launch/train_recsys.py (examples/
+    # train_recsys.py --full): at full width the compress payload's lr 1e-2
+    # (set for its reduced model) makes every sync's loss spike
+    ctx = ModelCtx(attn_chunk=TRAIN_SEQ)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, learning_rate=3e-3,
+                       warmup_steps=5, checkpoint_every=0)
+
+    def loss_fn(p, b):
+        return recmodel.recllm_loss(cfg, p, b, ctx)[0]
+
+    print(f"[train] RecLLM-base float32 at full width: {n_params:,} "
+          f"parameters ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.padded_vocab:,}, {ds.n_users:,} users); "
+          f"{len(ds.user):,} interactions; batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}; one-rank {dist.get_backend()} group; data in "
+          f"{data_s:.1f} s")
+    report = {"n_params": n_params, "runs": {}}
+    # the embedding backward's index_add_ then sums in a fixed order, not
+    # with atomics; no NaN fill of new tensors, which would add memsets to
+    # the step's time
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for name, mode, use_kernel in TRAIN_RUNS:
+            scfg = trainer.DPSyncConfig(mode=mode, use_kernel=use_kernel)
+            n = trainer.residual_size(params0, scfg)
+            params = tree_map(lambda p: p.clone(), params0)
+            opt = adamw.init_opt_state(params)
+            resid = torch.zeros(n, dtype=torch.float32, device=dev)
+            step = trainer.make_dp_train_step(loss_fn, mesh, tcfg, scfg)
+            split, losses, wall = {}, [], []
+            torch.cuda.synchronize()
+            reset_launches()
+            for i, b in enumerate(batches):
+                t1 = time.perf_counter()
+                # the first step's split (first use of the kernels and the
+                # collectives) is left out, as from steps/s
+                params, opt, resid, loss = step(params, opt, resid, b,
+                                                split=split if i else {})
+                losses.append(float(loss))
+                wall.append(time.perf_counter() - t1)
+            launches = read_launches()
+            check(all(math.isfinite(x) for x in losses),
+                  f"train {name}: non-finite loss {losses}")
+            per_step = TRAIN_LAUNCHES.get(mode, {}) if use_kernel else {}
+            want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
+            check(launches == want, f"train {name}: launches {launches}, "
+                  f"want {want}")
+            with torch.no_grad():
+                scores = recmodel.score_users(
+                    cfg, params, toks, torch.zeros_like(lens), lens, ctx)
+                hr, ndcg = metrics.hr_ndcg_at_k(scores, gold, k=10,
+                                                exclude=excl)
+            steady = sum(wall[1:]) / (len(wall) - 1)
+            wire = {"flat": n_params * 4 * 2, "hierarchical": n_params * 4,
+                    "onebit": n // 8 + (n // 512) * 4,
+                    "topk": (n // scfg.topk_block) * scfg.k * 8}[mode]
+            payload = {"onebit": n // 8 + n // (8 * scfg.block) * 4,
+                       "topk": (n // scfg.topk_block) * scfg.k * 8}.get(
+                           mode, n_params * 4)
+            r = {"losses": losses, "first_loss": losses[0],
+                 "final_loss": sum(losses[-5:]) / 5,
+                 "step_s": wall, "steps_per_s": 1.0 / steady,
+                 "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady,
+                 "split_s": {k: v / (TRAIN_STEPS - 1)
+                             for k, v in split.items()},
+                 "wire_bytes": wire, "payload_bytes": payload,
+                 "launches": launches, "hr10": float(hr),
+                 "ndcg10": float(ndcg)}
+            report["runs"][name] = r
+            sp = r["split_s"]
+            print(f"[train {name}] losses {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f} (last-5 mean {r['final_loss']:.4f}); "
+                  f"{r['steps_per_s']:.2f} steps/s, "
+                  f"{r['tokens_per_s']:.0f} tokens/s (steps 2-{TRAIN_STEPS}, "
+                  f"first {wall[0] * 1e3:.0f} ms); steps 2-{TRAIN_STEPS} "
+                  f"split fwd+bwd "
+                  f"{sp['fwd_bwd'] * 1e3:.2f} ms, sync {sp['sync'] * 1e3:.2f}"
+                  f" ms, opt {sp['opt'] * 1e3:.2f} ms; wire bytes/step "
+                  f"{wire:,} (payload {payload:,}); HR@10 {r['hr10']:.4f} "
+                  f"NDCG@10 {r['ndcg10']:.4f}; launches "
+                  + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+            del params, opt, resid
+
+        for mode in TRAIN_LAUNCHES:
+            a = report["runs"][mode]["losses"]
+            b = report["runs"][mode + "_plain"]["losses"]
+            diff = max(abs(x - y) for x, y in zip(a, b))
+            report["runs"][mode]["traj_max_abs_loss_diff"] = diff
+            if mode in TRAJ_EQUAL:
+                check(diff == 0.0, f"train {mode}: kernel and plain runs' "
+                      f"losses part by {diff}; they must be equal")
+            print(f"[train {mode}] kernel vs plain run: losses within "
+                  f"{diff:.3g} over {TRAIN_STEPS} steps ("
+                  + ("must be equal)" if mode in TRAJ_EQUAL
+                     else "reported, not held)"))
+
+        # the kernel sync against the plain sync on one step's gradient
+        # (taken once) and a nonzero residual
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params0)
+        grads = tree_unflatten(leaves, list(torch.autograd.grad(
+            loss_fn(leaves, batches[0]), tree_leaves(leaves))))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            for mode in ("onebit", "topk"):
+                scfg = trainer.DPSyncConfig(mode=mode)
+                n = trainer.residual_size(params0, scfg)
+                resid = torch.randn(n, generator=gen, device=dev) * 1e-4
+                out = {}
+                for use_kernel in (True, False):
+                    sync = compression.make_compressed_sync(
+                        mode, mesh=mesh, block=scfg.block if mode == "onebit"
+                        else scfg.topk_block, k=scfg.k,
+                        use_kernel=use_kernel)
+                    g, r = sync(grads, resid)
+                    out[use_kernel] = (torch.cat([x.reshape(-1) for x in
+                                                  tree_leaves(g)]), r)
+                (gk, rk), (gp, rp) = out[True], out[False]
+                if mode == "onebit":
+                    flat_x = torch.cat([torch.cat([x.reshape(-1) for x in
+                                                   tree_leaves(grads)]),
+                                        torch.zeros(n - n_params,
+                                                    device=dev)]) + resid
+                    bk, _ = ops.onebit_quantize(flat_x, scfg.block)
+                    bp, _ = ops.onebit_quantize(flat_x, scfg.block,
+                                                impl="ref")
+                    check(torch.equal(bk, bp), "onebit sync: kernel bits "
+                          "differ from the plain bits")
+                    scale = float(gp.abs().max())
+                    errs = (float((gk - gp).abs().max()) / scale,
+                            float((rk - rp).abs().max()) / scale)
+                    check(max(errs) <= SCALE_RTOL, f"onebit sync: kernel "
+                          f"against plain {errs} relative > {SCALE_RTOL}")
+                    what = (f"bits equal, mean and residual within "
+                            f"{max(errs):.3g} of the largest value")
+                else:
+                    check(torch.equal(gk, gp) and torch.equal(rk, rp),
+                          "topk sync: kernel and plain differ")
+                    what = "mean and residual equal"
+                report[f"sync_{mode}"] = what
+                print(f"[train] {mode} sync on one step's gradient, kernel "
+                      f"against plain: {what}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+        dist.destroy_process_group()
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
                     help="also write the full report (every case's error, "
                          "the timings, the serve summaries) as JSON here")
     args = ap.parse_args(argv)
+    # cuBLAS on a fixed workspace configuration, which torch requires to run
+    # cuBLAS under deterministic algorithms (the training phase)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -816,8 +1242,11 @@ def main(argv=None) -> int:
     report = {}
     try:
         report["device"] = phase_device(torch)
-        report["kernels"] = phase_kernels(torch)
+        report["kernels"] = phase_compress_kernels(torch,
+                                                   phase_kernels(torch))
+        check_autograd_guard(torch)
         report["serving"] = phase_serving(torch)
+        report["training"] = phase_training(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -827,17 +1256,22 @@ def main(argv=None) -> int:
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(json.dumps(report, indent=1, default=str))
 
-    # launches: each kernel's count in the serve run of its own path
-    path_of = {"flash_attention": "dense", "flash_decode": "dense",
-               **{kname: name for name, (_, kname) in LAYOUTS.items()}}
+    # launches: each kernel's count in the serve or train run of its own path
+    path_of = {"flash_attention": ("serving", "dense"),
+               "flash_decode": ("serving", "dense"),
+               **{kname: ("serving", name)
+                  for name, (_, kname) in LAYOUTS.items()},
+               "onebit_quantize": ("training", "onebit"),
+               "onebit_dequantize": ("training", "onebit"),
+               "topk_sparsify": ("training", "topk")}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape
+        phase, run = path_of[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": report["serving"]["runs"][path_of[name]]["launches"][
-                name],
+            "launches": report[phase]["runs"][run]["launches"][name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -1,14 +1,15 @@
-"""PyTorch/CUDA port of the ``repro`` serving path (RecLLM on one GPU).
+"""PyTorch/CUDA port of ``repro``: RecLLM's serving path and its
+data-parallel training step with gradient compression, on GPUs.
 
 The package mirrors ``src/repro/`` module by module and imports nothing of
 it (nor ``jax``): what it needs from the JAX package's jax-free modules is
-copied here.  Plain tensor code is PyTorch; the TPU kernels on this slice's
-path are hand-written CUDA C++ kernels under ``kernels/csrc/``.
+copied here.  Plain tensor code is PyTorch; the TPU kernels on the ported
+paths are hand-written CUDA C++ kernels under ``kernels/csrc/``.
 
-Entry points (``init_params``, ``make_backend``, ``NativeBackend``,
-``serve``, the launcher) run on ``cuda`` unless the caller passes
-``device="cpu"``.  Without CUDA they raise; they never fall back to the
-CPU on their own.
+Entry points (``init_params``, ``init_recllm``, ``make_backend``,
+``NativeBackend``, ``serve``, the launchers) run on ``cuda`` unless the
+caller passes ``device="cpu"``.  Without CUDA they raise; they never fall
+back to the CPU on their own.
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
-"""Architecture configs and their registry (a copy of ``repro/config.py``).
+"""Architecture and training configs, and the architecture registry (a
+copy of ``repro/config.py``).
 
 Every architecture in :mod:`repro_torch.configs` registers an
-:class:`ArchConfig` here.  The TPU hardware constants of the JAX package are
-left out: no speed number of that chip applies to the port.
+:class:`ArchConfig` here; :class:`TrainConfig` holds the optimizer and loop
+settings.  The TPU hardware constants of the JAX package are left out: no
+speed number of that chip applies to the port.
 """
 from __future__ import annotations
 
@@ -89,6 +91,23 @@ class ArchConfig:
             else:
                 kinds.append("attn")
         return tuple(kinds)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    zero1: bool = True                # shard optimizer state over dp axis
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    checkpoint_dir: str = "/tmp/repro_ckpt"
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """Parameters for the port: converted from the JAX init, or drawn anew.
 
-:func:`params_from_numpy` takes the JAX ``transformer.init_params`` pytree
-as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
-port's dict: the same keys, the same ``(in, out)`` weight orientation (no
-permutation: RoPE is split-half in both packages), stacked ``blocks``
-leaves kept ``(L, ...)``.
+:func:`params_from_numpy` takes the JAX ``transformer.init_params`` pytree,
+or RecLLM's ``recsys.model.init_recllm`` tree (``lm``, ``cf_user``,
+``cf_item``, ``fusion_gate``), as numpy arrays (``jax.tree.map(np.asarray,
+params)``) and returns the port's dict: the same keys, the same ``(in,
+out)`` weight orientation (no permutation: RoPE is split-half in both
+packages), stacked ``blocks`` leaves kept ``(L, ...)``.
 
 :func:`init_params` draws a fresh dict with the shapes and scales of the
 JAX init (``transformer.init_params``, ``layers.init_dense`` /
-``init_embedding`` / ``init_norm``) from a ``torch.Generator``.  The draws
-are not JAX's: parity tests convert JAX params instead.
+``init_embedding`` / ``init_norm``) from a ``torch.Generator``;
+:func:`repro_torch.recsys.model.init_recllm` adds RecLLM's CF tables and
+gate.  The draws are not JAX's: parity tests convert JAX params instead.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ from repro_torch.models import layers
 from repro_torch.models.transformer import check_ported
 
 # Leaves the JAX init keeps in float32 whatever the model dtype (norm
-# parameters); every other floating leaf is in the model dtype.
-_F32_LEAVES = ("scale", "bias")
+# parameters, RecLLM's CF tables and fusion gate); every other floating
+# leaf is in the model dtype.
+_F32_LEAVES = ("scale", "bias", "cf_user", "cf_item", "fusion_gate")
 
 
 def _to_tensor(x: np.ndarray, key: str, device, dtype) -> torch.Tensor:

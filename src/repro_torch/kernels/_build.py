@@ -24,7 +24,8 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("flash_attention", "flash_decode")
+SOURCES = ("flash_attention", "flash_decode", "grad_compress",
+           "topk_sparsify")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +41,10 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "repro_flash_decode_quant": ("flash_decode", _DECODE_ARGS),
     "repro_flash_decode_paged": ("flash_decode", _DECODE_ARGS),
     "repro_flash_decode_paged_quant": ("flash_decode", _DECODE_ARGS),
+    "repro_onebit_quantize": ("grad_compress", [_P] * 3 + [_L, _I, _P]),
+    "repro_onebit_dequantize": ("grad_compress",
+                                [_P] * 3 + [_I, _L, _I, _P]),
+    "repro_topk_sparsify": ("topk_sparsify", [_P] * 3 + [_L, _I, _I, _P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -131,6 +136,34 @@ def entry(fn_name: str):
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record a call: the kernels (and their
+    wrappers, which fill outputs through raw pointers) have no backward
+    yet, so an output would silently carry no gradient.  Raises on the CPU
+    too, where the plain version runs, so the CPU tests see what the card
+    does."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward pass yet; call it under "
+            "torch.no_grad() or on tensors that do not require grad (see "
+            "ROADMAP.md)")
+
+
+def check_dense(name: str, *pairs) -> None:
+    """Raise unless each (tensor, dtype) pair is a contiguous CUDA tensor
+    of that dtype on the first tensor's device."""
+    dev = pairs[0][0].device
+    for t, dtype in pairs:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: kernel inputs must be CUDA tensors "
+                             "on one device")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dtype} tensor, got "
+                             f"{t.dtype} with strides {t.stride()}")
 
 
 def check_inputs(name: str, q, *values, scales=()) -> None:

@@ -23,7 +23,8 @@ through their strides (a layer's view of the stacked cache needs no copy);
 lengths, q_lens (B,) integers.
 
 CPU tensors go to the plain versions (:mod:`repro_torch.kernels.ref`);
-CUDA tensors launch the kernel or raise.  The TPU kernels'
+CUDA tensors launch the kernel or raise.  There are no backward kernels,
+so a call that autograd would record raises, on the CPU too.  The TPU kernels'
 ``block_k``/``interpret`` arguments have no counterpart: the CUDA kernel
 loops over the live range at key granularity.  Each wrapper counts its
 launches in ``.launches``.
@@ -94,6 +95,7 @@ def flash_decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     """Dense 16-bit caches.  Returns (B, Sq, H, D) in q's dtype.  Draft row
     ``j`` attends with effective length ``lengths + j``; ``q_lens=None``
     makes every row live."""
+    _build.refuse_grad("flash_decode_attention", q, k_cache, v_cache)
     scale = _scale_and_check(q, k_cache.shape[2], softmax_scale, window,
                              ring)
     if q.device.type == "cpu":
@@ -111,6 +113,7 @@ def flash_decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths, *,
     """Dense int8 cache: k_q/v_q (B, S, Hk, D) int8, k_s/v_s (B, S, Hk) f32
     per-(position, head) scales; full-cache mask.  ``lengths`` may pass S
     (free serving slots keep counting): the kernel clamps the live range."""
+    _build.refuse_grad("flash_decode_attention_quant", q, k_q, k_s, v_q, v_s)
     scale = _scale_and_check(q, k_q.shape[2], softmax_scale, 0, False)
     if q.device.type == "cpu":
         return ref.decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths,
@@ -128,6 +131,7 @@ def flash_decode_attention_paged(q, k_pool, v_pool, block_tables, lengths, *,
     block_tables (B, nb) physical block ids; virtual position ``p`` of slot
     ``b`` is row ``p % bs`` of block ``block_tables[b, p // bs]``, over a
     virtual space of ``nb * bs`` positions."""
+    _build.refuse_grad("flash_decode_attention_paged", q, k_pool, v_pool)
     scale = _scale_and_check(q, k_pool.shape[2], softmax_scale, window, ring)
     if q.device.type == "cpu":
         return ref.decode_attention_paged(q, k_pool, v_pool, block_tables,
@@ -145,6 +149,8 @@ def flash_decode_attention_paged_quant(q, k_q_pool, k_s_pool, v_q_pool,
                                        softmax_scale=None, q_lens=None):
     """Paged int8 cache: value pools (N, bs, Hk, D) int8, scale pools
     (N, bs, Hk) f32, block_tables (B, nb); full-cache mask."""
+    _build.refuse_grad("flash_decode_attention_paged_quant", q, k_q_pool,
+                       k_s_pool, v_q_pool, v_s_pool)
     scale = _scale_and_check(q, k_q_pool.shape[2], softmax_scale, 0, False)
     if q.device.type == "cpu":
         return ref.decode_attention_paged_quant(

@@ -8,7 +8,9 @@ of the model's (B, S, H, D) tensors).  The kernel's design notes are at the
 top of the CUDA source.
 
 CPU tensors go to the plain version (:func:`repro_torch.kernels.ref
-.flash_attention`); CUDA tensors launch the kernel or raise.  The TPU
+.flash_attention`); CUDA tensors launch the kernel or raise.  There is no
+backward kernel yet, so a call that autograd would record raises, on the
+CPU too.  The TPU
 kernel's ``block_q``/``block_k``/``interpret`` arguments have no
 counterpart: the CUDA kernel fixes its own tiling.
 """
@@ -21,6 +23,7 @@ from repro_torch.kernels import _build, ref
 
 def flash_attention(q, k, v, *, causal=True, window=0, softmax_scale=None):
     """Returns (B, H, Sq, D) in q's dtype, laid out like q."""
+    _build.refuse_grad("flash_attention", q, k, v)
     B, H, Sq, D = q.shape
     Hk, Sk = k.shape[1], k.shape[2]
     if H % Hk:

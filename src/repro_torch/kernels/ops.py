@@ -1,10 +1,11 @@
-"""Public entry points of the attention kernels (port of ``repro/kernels/ops.py``).
+"""Public entry points of the kernels (port of ``repro/kernels/ops.py``).
 
 ``impl="kernel"`` runs the kernel wrapper, which launches the CUDA kernel
 for CUDA tensors and runs the plain version for CPU tensors; ``impl="ref"``
 forces the plain version.  :func:`decode_attention` is the one decode entry
 point keyed off a :class:`~repro_torch.cache_layout.CacheLayout`, over the
 whole (dense | paged) x (16-bit | int8) x (ref | dense | flash) matrix.
+The gradient-compression entry points take the flat gradient, as JAX's do.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from repro_torch.kernels.decode_attention import (
     flash_decode_attention, flash_decode_attention_paged,
     flash_decode_attention_paged_quant, flash_decode_attention_quant)
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels import grad_compress as _gc
+from repro_torch.kernels import topk_sparsify as _topk
 
 
 def _check_impl(impl: str) -> None:
@@ -126,3 +129,41 @@ def flash_decode_quant(q, k_q, k_s, v_q, v_s, lengths, *, softmax_scale=None,
     return flash_decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths,
                                         softmax_scale=softmax_scale,
                                         q_lens=q_lens)
+
+
+# -- 1-bit compression -------------------------------------------------------
+
+def onebit_quantize(g, block: int = 512, impl="kernel"):
+    """Flat (N,) f32, N % (8 * block) == 0 -> (packed (N/8,) u8, scales
+    (N / (8 * block),) f32)."""
+    _check_impl(impl)
+    g2d = g.reshape(8, g.shape[0] // 8)
+    if impl == "ref":
+        return ref.onebit_quantize(g2d, block)
+    return _gc.onebit_quantize(g2d, block)
+
+
+def onebit_dequantize(packed, scales, block: int = 512, impl="kernel"):
+    """packed (M,) -> flat (8M,) f32; a batch (R, M) of payloads with
+    scales (R, M / block) -> (R, 8M) in one launch."""
+    _check_impl(impl)
+    fn = ref.onebit_dequantize if impl == "ref" else _gc.onebit_dequantize
+    g = fn(packed, scales, block)
+    return g.reshape(packed.shape[:-1] + (8 * packed.shape[-1],))
+
+
+# -- top-k sparsification ----------------------------------------------------
+
+def topk_sparsify(g, k: int, block: int = 2048, impl="kernel"):
+    """Flat (N,) f32 -> (kept (N,), residual (N,)); block-local top-k.
+    ``impl="kernel"`` has the TPU kernel's distinct-magnitude threshold,
+    ``impl="ref"`` the sort of ``kernels/ref.py`` (they differ only where
+    magnitudes tie inside a block's top k)."""
+    _check_impl(impl)
+    N = g.shape[0]
+    if N % block:
+        raise ValueError(f"N={N} is not a multiple of block={block}")
+    x2d = g.reshape(N // block, block)
+    fn = ref.topk_sparsify if impl == "ref" else _topk.topk_sparsify
+    kept, resid = fn(x2d, k)
+    return kept.reshape(N), resid.reshape(N)

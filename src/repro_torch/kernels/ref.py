@@ -163,3 +163,62 @@ def decode_attention_paged_quant(q, k_q_pool, k_s_pool, v_q_pool, v_s_pool,
         paged_gather(v_q_pool, block_tables),
         paged_gather(v_s_pool, block_tables), lengths,
         softmax_scale=softmax_scale, q_lens=q_lens)
+
+
+# ---------------------------------------------------------------------------
+# 1-bit gradient compression (paper Eq. 10).  Layout: the flat gradient as
+# (8, M); bit j of packed[c] is the sign of g2d[j, c] (x >= 0 packs 1); one
+# float32 mean |g| scale per (8, block) tile of columns.
+# ---------------------------------------------------------------------------
+
+def onebit_quantize(g2d, block: int):
+    """g2d (8, M) f32 -> (packed (M,) uint8, scales (M / block,) f32)."""
+    _, M = g2d.shape
+    if M % block:
+        raise ValueError(f"M={M} is not a multiple of block={block}")
+    bits = (g2d >= 0).to(torch.int32)
+    weights = (2 ** torch.arange(8, dtype=torch.int32,
+                                 device=g2d.device))[:, None]
+    packed = torch.sum(bits * weights, dim=0).to(torch.uint8)
+    scales = torch.mean(torch.abs(g2d.reshape(8, M // block, block)),
+                        dim=(0, 2)).to(torch.float32)
+    return packed, scales
+
+
+def onebit_dequantize(packed, scales, block: int):
+    """packed (..., M) uint8, scales (..., M / block) -> (..., 8, M) f32:
+    +scale where the bit is set, -scale where it is not."""
+    j = torch.arange(8, dtype=torch.int32, device=packed.device)[:, None]
+    bits = (packed.to(torch.int32)[..., None, :] >> j) & 1
+    signs = 2.0 * bits.to(torch.float32) - 1.0
+    return signs * torch.repeat_interleave(scales, block, dim=-1)[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# block-local top-k sparsification (paper Eq. 11): keep |x| >= t per row,
+# residual = x - kept.  Two thresholds t, as in the JAX package:
+# ---------------------------------------------------------------------------
+
+def topk_sparsify(x2d, k: int):
+    """``kernels/ref.py``'s (what JAX's ``impl="ref"`` runs): t is the k-th
+    largest magnitude of the row counted with repeats (a sort)."""
+    a = torch.abs(x2d)
+    t = torch.sort(a, dim=-1).values[:, -k][:, None]
+    kept = torch.where(a >= t, x2d, torch.zeros_like(x2d))
+    return kept, x2d - kept
+
+
+def topk_sparsify_rounds(x2d, k: int):
+    """The TPU kernel's, and the CUDA kernel's: k rounds of "m = row max,
+    mask every magnitude >= m to -1"; t is the last m, the k-th largest
+    *distinct* magnitude, or -1 (keep the row) when the row has fewer than
+    k distinct magnitudes."""
+    a = torch.abs(x2d)
+    tmp = a.clone()
+    t = torch.full((x2d.shape[0], 1), float("inf"), dtype=a.dtype,
+                   device=a.device)
+    for _ in range(k):
+        t = torch.amax(tmp, dim=-1, keepdim=True)
+        tmp = torch.where(tmp >= t, torch.full_like(tmp, -1.0), tmp)
+    kept = torch.where(a >= t, x2d, torch.zeros_like(x2d))
+    return kept, x2d - kept

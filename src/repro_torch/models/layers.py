@@ -1,5 +1,6 @@
 """Core layer primitives (port of ``repro/models/layers.py``): norms, rotary
-embeddings, MLPs, the embedding and the LM head.
+embeddings, MLPs, the embedding and the LM head, and the cross-entropy
+loss with the JAX package's custom backward passes (embedding, NLL).
 
 Functions on tensors over a plain parameter dict keyed like the JAX pytree;
 weights are stored ``(in, out)`` and used as ``x @ W``.
@@ -103,8 +104,30 @@ def apply_mlp(cfg: ArchConfig, params, x):
 # Embedding and LM head
 # ---------------------------------------------------------------------------
 
+class _EmbedLookup(torch.autograd.Function):
+    """``emb[tokens]`` whose backward is the JAX package's: a sum of the
+    output gradient over the tokens of each row, accumulated in float32 and
+    cast to the table's dtype.  JAX writes it as a one-hot einsum;
+    ``index_add_`` computes the same sum in another order."""
+
+    @staticmethod
+    def forward(ctx, emb, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table = (emb.shape[0], emb.dtype)
+        return emb[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        rows, dtype = ctx.table
+        d = torch.zeros((rows, g.shape[-1]), dtype=torch.float32,
+                        device=g.device)
+        d.index_add_(0, tokens.reshape(-1), g.reshape(-1, g.shape[-1]).float())
+        return d.to(dtype), None
+
+
 def embed_tokens(emb, tokens):
-    return emb[tokens]
+    return _EmbedLookup.apply(emb, tokens)
 
 
 def lm_logits(cfg: ArchConfig, params, h):
@@ -112,3 +135,49 @@ def lm_logits(cfg: ArchConfig, params, h):
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+# ---------------------------------------------------------------------------
+
+def _lse32(logits):
+    """logsumexp with float32 accumulation (the max is a constant)."""
+    m = torch.amax(logits, dim=-1).detach().float()
+    s = torch.sum(torch.exp(logits.float() - m[..., None]), dim=-1)
+    return m + torch.log(s)
+
+
+class _NLL(torch.autograd.Function):
+    """Per-position negative log-likelihood with the JAX package's lean
+    backward: only (logits, targets, lse) are saved, and the gradient is
+    ``g * (softmax - onehot)`` in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        lse = _lse32(logits)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        ctx.save_for_backward(logits, targets, lse)
+        return lse - gold.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, lse = ctx.saved_tensors
+        d = torch.exp(logits.float() - lse[..., None])        # softmax
+        d.scatter_add_(-1, targets[..., None].long(),
+                       torch.full(targets.shape + (1,), -1.0, device=d.device))
+        return (g[..., None] * d).to(logits.dtype), None
+
+
+def _nll(logits, targets):
+    return _NLL.apply(logits, targets)
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """Next-token CE over (..., V_padded) logits; ``mask`` zeroes padded
+    positions.  Padded vocab columns are never targets."""
+    nll = _nll(logits, targets)
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

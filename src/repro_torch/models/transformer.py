@@ -13,6 +13,10 @@ into the stacked ``(L, n_slots, S, Hk, D)`` tensors or ``(L, N, bs, Hk,
 D)`` pools they were given, and return the same tensors.  Only
 ``cache["len"]`` is a new tensor after a decode step.
 
+:func:`loss_fn` and :func:`chunked_ce` give the training loss; the
+backward is PyTorch's autograd through the ``chunked`` (or ``naive``)
+attention path, since the CUDA attention kernels have no backward yet.
+
 This slice covers the uniform family (RecLLM) with dense and paged caches:
 MoE layers, M-RoPE, learned positions, qk-norm, the other families and
 chunked prefill raise ``NotImplementedError``; they are queued in
@@ -21,9 +25,11 @@ chunked prefill raise ``NotImplementedError``; they are queued in
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.cache_layout import CacheLayout
@@ -205,6 +211,44 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict,
     """Full-sequence forward.  Returns (logits, aux, kvs)."""
     h, aux, kvs = forward_hidden(cfg, params, batch, ctx, collect_kv)
     return layers.lm_logits(cfg, params, h), aux, kvs
+
+
+def chunked_ce(cfg: ArchConfig, params: Dict, hidden, targets, mask,
+               ctx: ModelCtx, chunk: int = 512):
+    """LM head + CE in sequence chunks, each recomputed in the backward
+    (the JAX ``jax.checkpoint`` under ``lax.scan``): the (B, S, V) logits
+    exist one chunk at a time.  A chunk that does not divide S falls back
+    to gcd(chunk, S), as in the JAX package."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = math.gcd(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+
+    def one(hc, tc, mc):
+        nll = layers._nll(layers.lm_logits(cfg, params, hc), tc)
+        return torch.sum(nll * mc), torch.sum(mc)
+
+    s = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        sc, nc = checkpoint(one, hidden[:, sl], targets[:, sl],
+                            mask[:, sl].float(), use_reentrant=False)
+        s, n = s + sc, n + nc
+    return s / torch.clamp(n, min=1.0)
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict,
+            ctx: ModelCtx = ModelCtx(), lb_weight: float = 0.01,
+            z_weight: float = 1e-3):
+    """Training loss: (total, {"ce", "lb_loss", "z_loss"})."""
+    hidden, aux, _ = forward_hidden(cfg, params, batch, ctx)
+    loss = chunked_ce(cfg, params, hidden, batch["targets"],
+                      batch.get("mask"), ctx)
+    total = loss + lb_weight * aux["lb_loss"] + z_weight * aux["z_loss"]
+    return total, {"ce": loss, **aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

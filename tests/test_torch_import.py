@@ -44,13 +44,20 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-# every module of the serving slices, so the walks below cannot go vacuous
+# every module of the serving and training slices, so the walks below
+# cannot go vacuous
 SLICE_MODULES = (
     "cache_layout.py", "convert.py", "kernels/_build.py",
     "kernels/decode_attention.py", "kernels/flash_attention.py",
     "kernels/ops.py", "kernels/ref.py", "models/attention.py",
     "models/kvquant.py", "models/transformer.py", "serving/block_pool.py",
     "serving/engine.py", "serving/roofline.py", "launch/serve.py",
+    "config.py", "tree.py", "optimizer/adamw.py", "optimizer/schedule.py",
+    "models/layers.py", "embeddings/table.py", "embeddings/lookup.py",
+    "recsys/model.py", "recsys/dataset.py", "recsys/metrics.py",
+    "kernels/grad_compress.py", "kernels/topk_sparsify.py",
+    "core/hierarchical.py", "core/compression.py", "runtime/trainer.py",
+    "launch/train_recsys.py",
 )
 
 
@@ -86,3 +93,15 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
                   lambda: engine.serve(cfg, params, [])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+
+
+def test_training_entry_points_refuse_a_missing_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.launch import train_recsys
+    from repro_torch.recsys import model
+    cfg = reduced(get_arch("recllm-base"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_recllm(cfg, 40, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_recsys.main(["--steps", "1"])
