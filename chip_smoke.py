@@ -24,7 +24,16 @@ failing the run with a non-zero exit when its check fails:
    test sizes, tied values and the training phase's full flat gradient:
    bytes, kept values and residuals exact, scales within 1e-6 relative;
    timed beside their plain versions (no PyTorch call computes them).
-   Every kernel wrapper must raise on inputs that require grad;
+   The sparse-embedding kernels and the fused AdamW kernel likewise:
+   gather_rows exactly in f32 and bf16 at the CPU tests' sizes and on the
+   training path's (192,403, 64) table (and ``dedup_lookup(use_kernel=
+   True)``); scatter_add_rows with heavy duplicates, the sentinel dump row
+   and the path's shape within 1e-6 relative (bit-equality reported);
+   adamw_update at N = 16,384 to 48,414,720, 17,408 (a shape the TPU
+   kernel's tiling rejects) and cf_item's 4,034,560 within 1e-6 + 1e-5
+   relative; timed at the path's shapes beside ``index_select``,
+   ``index_add_`` and ``torch._fused_adamw_``.  Every kernel wrapper must
+   raise on inputs that require grad;
 3. serving RecLLM-base at full width in bf16 (random weights from a seeded
    generator) through ``repro_torch.serving``: 16 Poisson requests on 8
    slots of 512 positions with both attention kernels on, under the dense
@@ -51,9 +60,18 @@ failing the run with a non-zero exit when its check fails:
    Each run resets the launch counters and must launch each compression
    kernel the number of times a step implies; every loss must be finite;
    top-k's kernel run must equal its plain run bit for bit (1-bit's gap,
-   from its scales' last bits, is reported).  One step's gradient through the kernel sync and
-   the plain sync: 1-bit bits equal and values within 1e-6 of the largest,
-   top-k equal.  HR@10/NDCG@10 after each run.
+   from its scales' last bits, is reported).  Then five runs of the
+   sparse-embedding slice: cf_user synced rows-touched through the gather
+   and scatter kernels (``flat_embed``, whose losses must equal flat's bit
+   for bit: on one rank it is the dense gradient), the same with the
+   plain row operations (equal too), with zero_opt (within 1e-4 relative
+   of flat: its clip sums in another order), with top-k sync and the
+   top-k row compressor, and flat with the fused AdamW kernel (11 leaves a
+   step; its gap to flat is reported).  One step's gradient through the
+   kernel sync and the plain sync: 1-bit bits equal and values within 1e-6
+   of the largest, top-k equal; one AdamW step, fused against
+   elementwise, within 1e-6 + 1e-5 relative.  HR@10/NDCG@10 and wire bytes
+   per step after each run.
 
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
@@ -130,6 +148,12 @@ KERNELS = {
                           "src/repro/kernels/grad_compress.py:59"),
     "topk_sparsify": ("src/repro_torch/kernels/csrc/topk_sparsify.cu",
                       "src/repro/kernels/topk_sparsify.py:34"),
+    "gather_rows": ("src/repro_torch/kernels/csrc/embedding_ops.cu",
+                    "src/repro/kernels/embedding_ops.py:33"),
+    "scatter_add_rows": ("src/repro_torch/kernels/csrc/embedding_ops.cu",
+                         "src/repro/kernels/embedding_ops.py:62"),
+    "adamw_update": ("src/repro_torch/kernels/csrc/fused_adamw.cu",
+                     "src/repro/kernels/fused_adamw.py:29"),
 }
 NO_LIBRARY = {
     "flash_decode_quant": "no PyTorch call attends over int8 values with "
@@ -157,6 +181,8 @@ def check(ok, msg):
 def _wrappers():
     """Kernel name -> the wrapper that counts its launches."""
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import embedding_ops as eo
+    from repro_torch.kernels import fused_adamw as fa
     from repro_torch.kernels import grad_compress as gc
     from repro_torch.kernels import topk_sparsify as tk
     from repro_torch.kernels.flash_attention import flash_attention
@@ -167,7 +193,10 @@ def _wrappers():
             "flash_decode_paged_quant": dk.flash_decode_attention_paged_quant,
             "onebit_quantize": gc.onebit_quantize,
             "onebit_dequantize": gc.onebit_dequantize,
-            "topk_sparsify": tk.topk_sparsify}
+            "topk_sparsify": tk.topk_sparsify,
+            "gather_rows": eo.gather_rows,
+            "scatter_add_rows": eo.scatter_add_rows,
+            "adamw_update": fa.adamw_update}
 
 
 def reset_launches():
@@ -982,6 +1011,191 @@ def phase_compress_kernels(torch, report):
     return report
 
 
+# -- sparse-embedding sync and the fused optimizer (training) ----------------
+
+# the cases of tests/test_torch_embed.py: gather (rows, dim, n ids), in f32
+# and bf16, plus a 3-wide bf16 row (6 bytes: the byte-wise copy);
+# scatter (n, dim, n_rows)
+GATHER_CASES = [(64, 16, 40), (128, 32, 48), (16, 8, 12), (100, 3, 7)]
+SCATTER_CASES = [(24, 16, 8), (48, 32, 64), (1000, 64, 5)]
+SCATTER_RTOL = 1e-6      # tests/test_embeddings.py's; expected exact
+# fused AdamW: tests/test_kernels.py's sizes, the shape the Pallas
+# kernel's tiling rejects, cf_item and embed at full width
+ADAMW_NS = [8 * 2048, 8 * 4096, 17_408, 4_034_560, 48_414_720]
+ADAMW_ATOL, ADAMW_RTOL = 1e-6, 1e-5      # tests/test_kernels.py:172
+ADAMW_KW = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+ADAMW_FLOPS = 12         # per element; far below the byte bound
+
+
+def _adamw_err(got, want):
+    """(max |a - b| over p', m', v', whether every element is within
+    ADAMW_ATOL + ADAMW_RTOL |b|)."""
+    worst, ok = 0.0, True
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        ok &= bool((d <= ADAMW_ATOL + ADAMW_RTOL * b.abs()).all())
+    return worst, ok
+
+
+def phase_embed_kernels(torch, report):
+    """gather_rows, scatter_add_rows and adamw_update against their plain
+    versions, at the CPU tests' sizes and at the training path's shapes,
+    then timed there; rows added to ``report["timing"]``."""
+    from repro_torch.embeddings import dedup_lookup, update
+    from repro_torch.kernels import embedding_ops as eo
+    from repro_torch.kernels import fused_adamw as fa
+    from repro_torch.kernels import ref
+    inp = Inputs(torch)
+    dev = inp.dev
+    _, n_users = train_config()
+
+    def ids(n, rows):
+        return torch.randint(0, rows, (n,), generator=inp.gen, device=dev,
+                             dtype=torch.int32)
+
+    # gather: exact, f32 and bf16, then the path's (192,403, 64) f32 table
+    # with a batch's 32 user ids (what sparse_row_sync gathers)
+    for rows, dim, n in GATHER_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            t, i = inp.randn(rows, dim, dtype=dt), ids(n, rows)
+            check(torch.equal(eo.gather_rows(t, i), ref.gather_rows(t, i)),
+                  f"gather_rows ({rows}, {dim}) {dt} n={n}: differs from "
+                  "the plain version")
+    table = inp.randn(n_users, 64, dtype=torch.float32)
+    users = ids(TRAIN_BATCH, n_users)
+    users[TRAIN_BATCH // 2:] = users[:TRAIN_BATCH // 2]      # repeats
+    u = update.rows_touched(users, n_users)
+    gidx = torch.clamp(u, 0, n_users - 1)
+    check(torch.equal(eo.gather_rows(table, gidx),
+                      ref.gather_rows(table, gidx)),
+          "gather_rows at the path's shape differs from the plain version")
+    check(torch.equal(dedup_lookup(table, users.reshape(4, -1),
+                                   use_kernel=True),
+                      table[users.long()].reshape(4, -1, 64)),
+          "dedup_lookup(use_kernel=True) differs from the direct gather")
+
+    # scatter: heavy duplicates, the sentinel dump row, the path's shape
+    def scatter_case(x, idx, n_rows, what):
+        got = eo.scatter_add_rows(x, idx, n_rows)
+        want = ref.scatter_add_rows(x, idx, n_rows)
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        check(rel <= SCATTER_RTOL, f"scatter_add_rows {what}: {rel} "
+              f"relative from the plain version > {SCATTER_RTOL}")
+        return err, bool(torch.equal(got, want))
+
+    exact = []
+    for n, dim, n_rows in SCATTER_CASES:
+        exact.append(scatter_case(inp.randn(n, dim, dtype=torch.float32),
+                                  ids(n, n_rows), n_rows,
+                                  f"({n}, {dim}) -> {n_rows}")[1])
+    sent = ids(10, 10)
+    sent[::3] = 9                          # the dump row of a 9-row table
+    exact.append(scatter_case(inp.randn(10, 16, dtype=torch.float32), sent,
+                              10, "onto the dump row")[1])
+    sidx = torch.clamp(u, max=n_users)     # scatter_rows' ids
+    srows = inp.randn(u.shape[0], 64, dtype=torch.float32)
+    scat_err, scat_exact = scatter_case(srows, sidx, n_users + 1,
+                                        "at the path's shape")
+    exact.append(scat_exact)
+
+    # fused AdamW after 3 steps of bias correction; lr and the
+    # corrections as device scalars, as the optimizer passes them
+    step = 3
+    bc1, bc2 = 1 - 0.9 ** step, 1 - 0.95 ** step
+    lr = 1e-3
+    hyper = fa.hyper(torch.tensor(lr, device=dev),
+                     torch.tensor(bc1, device=dev),
+                     torch.tensor(bc2, device=dev), device=dev, **ADAMW_KW)
+    adamw_errs = {}
+    for N in ADAMW_NS:
+        p_, g_, m_ = (inp.randn(N, dtype=torch.float32) for _ in range(3))
+        v_ = inp.randn(N, dtype=torch.float32).abs()
+        err, ok = _adamw_err(fa.adamw_update(p_, g_, m_, v_, hyper),
+                             ref.adamw_update(p_, g_, m_, v_, lr=lr,
+                                              bc1=bc1, bc2=bc2, **ADAMW_KW))
+        check(ok, f"adamw_update N={N}: beyond atol {ADAMW_ATOL} + rtol "
+                  f"{ADAMW_RTOL} of the plain version (max abs {err})")
+        adamw_errs[N] = err
+    print(f"[kernels] embedding: {2 * len(GATHER_CASES) + 1} gather cases "
+          f"(f32, bf16, the path's ({n_users:,}, 64) f32) and the kernel "
+          f"dedup lookup equal the plain versions; "
+          f"{len(SCATTER_CASES) + 2} scatter cases within {SCATTER_RTOL} "
+          f"relative ({sum(exact)} of {len(exact)} bit-equal); adamw_update "
+          f"at N in {ADAMW_NS} within atol {ADAMW_ATOL} + rtol {ADAMW_RTOL} "
+          f"(max abs " + ", ".join(f"{e:.3g}" for e in adamw_errs.values())
+          + ")")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    n, D = gidx.shape[0], 64
+    N = ADAMW_NS[-1]
+    p_, g_, m_ = (inp.randn(N, dtype=torch.float32) for _ in range(3))
+    v_ = inp.randn(N, dtype=torch.float32).abs()
+    lib_state = [x.clone() for x in (p_, g_, m_, v_)]
+    lib_step = torch.tensor(float(step), device=dev)
+    library_adamw, adamw_note = None, None
+    if hasattr(torch, "_fused_adamw_"):
+        def library_adamw():
+            pl, gl, ml, vl = lib_state
+            torch._fused_adamw_([pl], [gl], [ml], [vl], [], [lib_step],
+                                lr=lr, beta1=ADAMW_KW["b1"],
+                                beta2=ADAMW_KW["b2"],
+                                weight_decay=ADAMW_KW["wd"],
+                                eps=ADAMW_KW["eps"], amsgrad=False,
+                                maximize=False)
+    else:
+        adamw_note = "this torch has no torch._fused_adamw_"
+    sidx_long = sidx.long()
+    rows = {
+        "gather_rows": (
+            lambda: eo.gather_rows(table, gidx),
+            lambda: ref.gather_rows(table, gidx),
+            lambda: torch.index_select(table, 0, gidx),
+            2 * n * D * 4, 0, 0.0, 0.0,
+            f"({n_users:,}, {D}) f32 table, {n} ids (a batch's unique "
+            "users, sentinel-padded and clamped)", None),
+        "scatter_add_rows": (
+            lambda: eo.scatter_add_rows(srows, sidx, n_users + 1),
+            lambda: ref.scatter_add_rows(srows, sidx, n_users + 1),
+            lambda: torch.zeros((n_users + 1, D), device=dev).index_add_(
+                0, sidx_long, srows),
+            4 * (n * D + (n_users + 1) * D), n * D, scat_err, SCATTER_RTOL,
+            f"({n}, {D}) f32 rows -> ({n_users + 1:,}, {D}), the dump row "
+            "included; wrapper time (stable sort, zero-fill, segment sums)",
+            None),
+        "adamw_update": (
+            lambda: fa.adamw_update(p_, g_, m_, v_, hyper),
+            lambda: ref.adamw_update(p_, g_, m_, v_, lr=lr, bc1=bc1,
+                                     bc2=bc2, **ADAMW_KW),
+            library_adamw, 28 * N, ADAMW_FLOPS * N, adamw_errs[N],
+            ADAMW_RTOL, f"({N:,},) f32 (the embed leaf), 7 streams",
+            adamw_note),
+    }
+    for name, (fn, plain, lib, nbytes, ops, err, tol, shape,
+               note) in rows.items():
+        t = {"shape": shape, "max_abs_err": err, "tol": tol,
+             "ms": _time_ms(torch, fn, flush),
+             "plain_ms": _time_ms(torch, plain, flush),
+             "library_ms": (_time_ms(torch, lib, flush)
+                            if lib is not None else None),
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": ops / F32_OPS_PER_S * 1e3}
+        if note:
+            t["library_note"] = note
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        report["timing"][name] = [t]
+        lib_s = (f"library {t['library_ms']:.4f} ms"
+                 if t["library_ms"] is not None else "no library call")
+        print(f"[time {name}] {shape}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, {lib_s}, bound {t['bound_ms']:.3g} "
+              f"ms ({t['bound_by']}), max abs err {err:.3g}")
+    report["scatter_exact"] = all(exact)
+    return report
+
+
 def check_autograd_guard(torch):
     """Every kernel wrapper raises on the card when autograd would record
     the call (the kernels have no backward): a training caller gets an
@@ -997,7 +1211,12 @@ def check_autograd_guard(torch):
         "onebit_quantize": (wrappers["onebit_quantize"], (g.reshape(8, -1),)),
         "onebit_dequantize": (wrappers["onebit_dequantize"],
                               (packed, scales)),
-        "topk_sparsify": (wrappers["topk_sparsify"], (g.reshape(4, -1), 8))})
+        "topk_sparsify": (wrappers["topk_sparsify"], (g.reshape(4, -1), 8)),
+        "gather_rows": (wrappers["gather_rows"],
+                        (g.reshape(64, -1), inp.ints([3, 1, 3]))),
+        "scatter_add_rows": (wrappers["scatter_add_rows"],
+                             (g.reshape(64, -1), inp.ints([0, 2] * 32), 4)),
+        "adamw_update": (wrappers["adamw_update"], (g, g, g, g.abs(), g[:8]))})
     for name, (fn, args) in calls.items():
         leaf = args[0] if args[0].is_floating_point() else args[1]
         leaf.requires_grad_()
@@ -1014,23 +1233,45 @@ def check_autograd_guard(torch):
 
 
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 32, 32
-# (name, sync mode, use_kernel) in the order they run, each from one init
-TRAIN_RUNS = [("flat", "flat", True), ("hierarchical", "hierarchical", True),
-              ("onebit", "onebit", True), ("topk", "topk", True),
-              ("onebit_plain", "onebit", False),
-              ("topk_plain", "topk", False)]
+# (name, sync mode, use_kernel, step options) in the order they run, each
+# from one init.  Options: "embed" -> EmbedSyncConfig(id_fns=
+# embed_id_fns(), **embed), cf_user synced rows-touched; "adamw_kernel"
+# -> the fused AdamW kernel.
+TRAIN_RUNS = [("flat", "flat", True, {}),
+              ("hierarchical", "hierarchical", True, {}),
+              ("onebit", "onebit", True, {}), ("topk", "topk", True, {}),
+              ("onebit_plain", "onebit", False, {}),
+              ("topk_plain", "topk", False, {}),
+              ("flat_embed", "flat", True, {"embed": {}}),
+              ("flat_embed_plain", "flat", True,
+               {"embed": {"use_kernel": False}}),
+              ("flat_embed_zero", "flat", True,
+               {"embed": {"zero_opt": True}}),
+              ("topk_embed", "topk", True,
+               {"embed": {"compress": "topk", "k": 8}}),
+              ("flat_fused_adamw", "flat", True, {"adamw_kernel": True})]
 # kernel launches per step each run's design implies: 1-bit quantizes the
 # local gradient once and dequantizes the local and the gathered payloads
-# in one launch each; top-k sparsifies once
+# in one launch each; top-k sparsifies once (and once more the exchanged
+# cf_user rows under the row compressor); the rows-touched sync gathers
+# the touched rows once and scatters the gathered ones once; the fused
+# AdamW kernel takes the 11 leaves whose size is a multiple of 1024
+# (FUSED_LEAVES); the other runs launch nothing
+EMBED_LAUNCHES = {"gather_rows": 1, "scatter_add_rows": 1}
+FUSED_LEAVES, FUSED_FLOATS = 11, 165_713_920
 TRAIN_LAUNCHES = {"onebit": {"onebit_quantize": 1, "onebit_dequantize": 2},
-                  "topk": {"topk_sparsify": 1}}
-# The phase runs under deterministic algorithms, so a kernel run and its
-# plain run part only where the kernels' results differ from the plain
-# versions'.  Top-k's never do: its two runs must be bit-equal.  1-bit's
-# scales differ in the last bits (within SCALE_RTOL), and a later step can
-# turn that into a sign flip near zero, which Adam makes a full step: the
-# gap of its runs is reported, not held; the one-gradient sync check holds
-# the 1-bit kernels.
+                  "topk": {"topk_sparsify": 1},
+                  "flat_embed": EMBED_LAUNCHES,
+                  "flat_embed_zero": EMBED_LAUNCHES,
+                  "topk_embed": {"topk_sparsify": 2, **EMBED_LAUNCHES},
+                  "flat_fused_adamw": {"adamw_update": FUSED_LEAVES}}
+# On one rank the rows-touched sync is the dense gradient, so these runs
+# must give flat's losses bit for bit; zero_opt's clip sums the squares
+# in another order, so it is held within ZERO_RTOL of flat (the JAX
+# package's own check of it)
+EQUAL_TO_FLAT = ("flat_embed", "flat_embed_plain")
+ZERO_RTOL = 1e-4
+EMBED_ROW_BYTES = 64 * 4 + 4       # one exchanged row and its int32 id
 TRAJ_EQUAL = ("topk",)
 
 
@@ -1092,13 +1333,22 @@ def phase_training(torch):
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
-        for name, mode, use_kernel in TRAIN_RUNS:
+        for name, mode, use_kernel, opts in TRAIN_RUNS:
             scfg = trainer.DPSyncConfig(mode=mode, use_kernel=use_kernel)
-            n = trainer.residual_size(params0, scfg)
+            esync = (trainer.EmbedSyncConfig(id_fns=recmodel.embed_id_fns(),
+                                             **opts["embed"])
+                     if "embed" in opts else None)
+            exclude = esync.exclude if esync else ()
+            n = trainer.residual_size(params0, scfg, exclude=exclude)
             params = tree_map(lambda p: p.clone(), params0)
             opt = adamw.init_opt_state(params)
+            if esync is not None and esync.zero_opt:
+                opt = trainer.shard_embed_opt(opt, esync, mesh, scfg)
             resid = torch.zeros(n, dtype=torch.float32, device=dev)
-            step = trainer.make_dp_train_step(loss_fn, mesh, tcfg, scfg)
+            step = trainer.make_dp_train_step(
+                loss_fn, mesh, tcfg, scfg, embed_sync=esync,
+                params_shape=params0,
+                adamw_kernel=opts.get("adamw_kernel", False))
             split, losses, wall = {}, [], []
             torch.cuda.synchronize()
             reset_launches()
@@ -1113,7 +1363,7 @@ def phase_training(torch):
             launches = read_launches()
             check(all(math.isfinite(x) for x in losses),
                   f"train {name}: non-finite loss {losses}")
-            per_step = TRAIN_LAUNCHES.get(mode, {}) if use_kernel else {}
+            per_step = TRAIN_LAUNCHES.get(name, {})
             want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
             check(launches == want, f"train {name}: launches {launches}, "
                   f"want {want}")
@@ -1123,12 +1373,19 @@ def phase_training(torch):
                 hr, ndcg = metrics.hr_ndcg_at_k(scores, gold, k=10,
                                                 exclude=excl)
             steady = sum(wall[1:]) / (len(wall) - 1)
-            wire = {"flat": n_params * 4 * 2, "hierarchical": n_params * 4,
+            # the dense part over the params outside the excluded tables,
+            # plus each rank's rows-touched payload: P ranks x U ids (the
+            # sentinel-padded unique set of a rank's batch) x (row + id)
+            n_dense = n_params - sum(params0[k].numel() for k in exclude)
+            rows_wire = (mesh.size(("data",)) * TRAIN_BATCH
+                         * EMBED_ROW_BYTES if esync else 0)
+            wire = {"flat": n_dense * 4 * 2, "hierarchical": n_dense * 4,
                     "onebit": n // 8 + (n // 512) * 4,
                     "topk": (n // scfg.topk_block) * scfg.k * 8}[mode]
             payload = {"onebit": n // 8 + n // (8 * scfg.block) * 4,
                        "topk": (n // scfg.topk_block) * scfg.k * 8}.get(
-                           mode, n_params * 4)
+                           mode, n_dense * 4)
+            wire, payload = wire + rows_wire, payload + rows_wire
             r = {"losses": losses, "first_loss": losses[0],
                  "final_loss": sum(losses[-5:]) / 5,
                  "step_s": wall, "steps_per_s": 1.0 / steady,
@@ -1136,6 +1393,7 @@ def phase_training(torch):
                  "split_s": {k: v / (TRAIN_STEPS - 1)
                              for k, v in split.items()},
                  "wire_bytes": wire, "payload_bytes": payload,
+                 "rows_wire_bytes": rows_wire,
                  "launches": launches, "hr10": float(hr),
                  "ndcg10": float(ndcg)}
             report["runs"][name] = r
@@ -1148,12 +1406,14 @@ def phase_training(torch):
                   f"split fwd+bwd "
                   f"{sp['fwd_bwd'] * 1e3:.2f} ms, sync {sp['sync'] * 1e3:.2f}"
                   f" ms, opt {sp['opt'] * 1e3:.2f} ms; wire bytes/step "
-                  f"{wire:,} (payload {payload:,}); HR@10 {r['hr10']:.4f} "
+                  f"{wire:,} (payload {payload:,}"
+                  + (f"; cf_user rows {rows_wire:,}" if esync else "")
+                  + f"); HR@10 {r['hr10']:.4f} "
                   f"NDCG@10 {r['ndcg10']:.4f}; launches "
                   + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
             del params, opt, resid
 
-        for mode in TRAIN_LAUNCHES:
+        for mode in ("onebit", "topk"):
             a = report["runs"][mode]["losses"]
             b = report["runs"][mode + "_plain"]["losses"]
             diff = max(abs(x - y) for x, y in zip(a, b))
@@ -1165,6 +1425,26 @@ def phase_training(torch):
                   f"{diff:.3g} over {TRAIN_STEPS} steps ("
                   + ("must be equal)" if mode in TRAJ_EQUAL
                      else "reported, not held)"))
+        flat = report["runs"]["flat"]["losses"]
+        for name in ("flat_embed", "flat_embed_plain", "flat_embed_zero",
+                     "flat_fused_adamw"):
+            other = report["runs"][name]["losses"]
+            diff = max(abs(x - y) for x, y in zip(other, flat))
+            rel = max(abs(x - y) / abs(y) for x, y in zip(other, flat))
+            report["runs"][name]["flat_max_abs_loss_diff"] = diff
+            if name in EQUAL_TO_FLAT:
+                check(other == flat, f"train {name}: losses part from "
+                      f"flat's by {diff}; on one rank they must be equal")
+                held = "must be equal"
+            elif name == "flat_embed_zero":
+                check(rel <= ZERO_RTOL, f"train {name}: losses {rel} "
+                      f"relative from flat's > {ZERO_RTOL}")
+                held = f"held within {ZERO_RTOL} relative"
+            else:
+                held = "reported, not held"
+            print(f"[train {name}] against flat: losses within {diff:.3g} "
+                  f"absolute, {rel:.3g} relative over {TRAIN_STEPS} steps "
+                  f"({held})")
 
         # the kernel sync against the plain sync on one step's gradient
         # (taken once) and a nonzero residual
@@ -1211,6 +1491,35 @@ def phase_training(torch):
                 report[f"sync_{mode}"] = what
                 print(f"[train] {mode} sync on one step's gradient, kernel "
                       f"against plain: {what}")
+
+            # one AdamW step of the fused route against the elementwise
+            # one on the same gradient, at step 3 with nonzero moments
+            routed = [x.numel() for x in tree_leaves(params0)
+                      if x.numel() % 1024 == 0]
+            check((len(routed), sum(routed)) == (FUSED_LEAVES, FUSED_FLOATS),
+                  f"{len(routed)} leaves ({sum(routed)} floats) take the "
+                  f"fused route, want {FUSED_LEAVES} ({FUSED_FLOATS})")
+            opt0 = adamw.init_opt_state(params0)
+            opt0["m"] = tree_map(lambda g: 0.3 * g, grads)
+            opt0["v"] = tree_map(lambda g: 0.5 * g * g, grads)
+            opt0["step"] = torch.full_like(opt0["step"], 2)
+            out = {k: adamw.adamw_apply(params0, grads, opt0, 3e-3, tcfg,
+                                        use_kernel=k)[1]
+                   for k in (True, False)}
+            worst = 0.0
+            for part in ("master", "m", "v"):
+                err, ok = _adamw_err(tree_leaves(out[True][part]),
+                                     tree_leaves(out[False][part]))
+                check(ok, f"fused AdamW step: {part} beyond atol "
+                          f"{ADAMW_ATOL} + rtol {ADAMW_RTOL} of the "
+                          f"elementwise step (max abs {err})")
+                worst = max(worst, err)
+            report["adamw_step_max_abs_err"] = worst
+            print(f"[train] one AdamW step, fused route ({FUSED_LEAVES} "
+                  f"leaves, {FUSED_FLOATS:,} floats) against the "
+                  f"elementwise step: new params, m and v within atol "
+                  f"{ADAMW_ATOL} + rtol {ADAMW_RTOL} (max abs {worst:.3g})")
+            del out, opt0
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = True
@@ -1242,8 +1551,8 @@ def main(argv=None) -> int:
     report = {}
     try:
         report["device"] = phase_device(torch)
-        report["kernels"] = phase_compress_kernels(torch,
-                                                   phase_kernels(torch))
+        report["kernels"] = phase_embed_kernels(
+            torch, phase_compress_kernels(torch, phase_kernels(torch)))
         check_autograd_guard(torch)
         report["serving"] = phase_serving(torch)
         report["training"] = phase_training(torch)
@@ -1263,7 +1572,10 @@ def main(argv=None) -> int:
                   for name, (_, kname) in LAYOUTS.items()},
                "onebit_quantize": ("training", "onebit"),
                "onebit_dequantize": ("training", "onebit"),
-               "topk_sparsify": ("training", "topk")}
+               "topk_sparsify": ("training", "topk"),
+               "gather_rows": ("training", "flat_embed"),
+               "scatter_add_rows": ("training", "flat_embed"),
+               "adamw_update": ("training", "flat_fused_adamw")}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape

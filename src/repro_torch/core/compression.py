@@ -21,9 +21,8 @@ from functools import partial
 from typing import List, Tuple
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.core.hierarchical import DPMesh
+from repro_torch.core.hierarchical import DPMesh, all_gather
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -56,15 +55,6 @@ def _padded(grads, residual):
     return torch.cat([flat, flat.new_zeros(npad)]) + residual, meta, npad
 
 
-def _all_gather(x: torch.Tensor, mesh: DPMesh, axis: str) -> torch.Tensor:
-    """(P,) + x.shape: every rank's x along ``axis``, in rank order."""
-    P = mesh.shape[axis]
-    out = x.new_empty((P * x.numel(),))      # gloo wants a flat output
-    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
-                                group=mesh.group((axis,)))
-    return out.reshape((P,) + tuple(x.shape))
-
-
 def onebit_sync(grads, residual: torch.Tensor, *, mesh: DPMesh,
                 axis: str = "data", block: int = 512,
                 use_kernel: bool = True) -> Tuple[object, torch.Tensor]:
@@ -75,8 +65,8 @@ def onebit_sync(grads, residual: torch.Tensor, *, mesh: DPMesh,
     local_hat = ops.onebit_dequantize(packed, scales, block, impl=impl)
     new_residual = flat - local_hat
     # exchange compressed payloads (uint8 + per-block scales on the wire)
-    packed_all = _all_gather(packed, mesh, axis)          # (P, N/8) u8
-    scales_all = _all_gather(scales, mesh, axis)          # (P, nb) f32
+    packed_all = all_gather(packed, mesh, axis)           # (P, N/8) u8
+    scales_all = all_gather(scales, mesh, axis)           # (P, nb) f32
     deq = ops.onebit_dequantize(packed_all, scales_all, block, impl=impl)
     g_hat = deq.sum(dim=0) / mesh.shape[axis]
     n = flat.shape[0] - npad
@@ -110,8 +100,8 @@ def topk_sync(grads, residual: torch.Tensor, *, mesh: DPMesh,
     vals = torch.gather(kept2d, -1, idx)                  # signed values
     sent = torch.zeros_like(kept2d).scatter_(-1, idx, vals)
     new_residual = flat - sent.reshape(-1)
-    vals_all = _all_gather(vals, mesh, axis)              # (P, nb, k)
-    idx_all = _all_gather(idx.to(torch.int32), mesh, axis)
+    vals_all = all_gather(vals, mesh, axis)               # (P, nb, k)
+    idx_all = all_gather(idx.to(torch.int32), mesh, axis)
     acc = torch.zeros_like(kept2d)
     for p in range(mesh.shape[axis]):
         acc.scatter_add_(-1, idx_all[p].long(), vals_all[p])

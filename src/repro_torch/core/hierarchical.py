@@ -89,6 +89,20 @@ def init_world_of_one(device) -> DPMesh:
     return make_dp_mesh()
 
 
+def all_gather(x: torch.Tensor, mesh: DPMesh, axis: str,
+               tiled: bool = False) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, in the axis's order: stacked as
+    (P,) + x.shape, or, ``tiled``, concatenated on dim 0 as
+    ``jax.lax.all_gather(..., tiled=True)`` gives it."""
+    P = mesh.shape[axis]
+    out = x.new_empty((P * x.numel(),))      # gloo wants a flat output
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
+                                group=mesh.group((axis,)))
+    if tiled:
+        return out.reshape((P * x.shape[0],) + tuple(x.shape[1:]))
+    return out.reshape((P,) + tuple(x.shape))
+
+
 def flat_allreduce_mean(g: torch.Tensor, mesh: DPMesh, axes) -> torch.Tensor:
     """Baseline: one all-reduce over all dp axes (Eq. 8), then / P."""
     out = g.clone()

@@ -4,14 +4,17 @@
 A batch of n ids hits U <= n unique rows, so the gather moves U rows.
 ``jnp.unique(size=n)`` keeps the shapes static by padding the unique ids
 with repeats of the smallest one; :func:`dedup_ids` reproduces that
-padding.  The sharded plans wait for the sparse-embedding slice, and so
-does the gather kernel behind ``use_kernel=True`` (ROADMAP.md).
+padding.  ``use_kernel=True`` gathers the unique rows with the
+``gather_rows`` CUDA kernel (forward only, as in JAX: the kernel has no
+backward).  The sharded plans are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 def dedup_ids(ids: torch.Tensor, cap: Optional[int] = None
@@ -32,9 +35,6 @@ def dedup_lookup(table: torch.Tensor, ids: torch.Tensor,
                  use_kernel: bool = False) -> torch.Tensor:
     """``table[ids]`` via unique -> gather -> inverse; equal to the direct
     gather, moving U <= n rows."""
-    if use_kernel:
-        raise NotImplementedError(
-            "dedup_lookup(use_kernel=True): the gather_rows kernel is not "
-            "ported yet; see ROADMAP.md")
     u, inv = dedup_ids(ids)
-    return table[u][inv].reshape(ids.shape + (table.shape[-1],))
+    rows = ops.embedding_gather(table, u) if use_kernel else table[u]
+    return rows[inv].reshape(ids.shape + (table.shape[-1],))

@@ -5,7 +5,8 @@ for CUDA tensors and runs the plain version for CPU tensors; ``impl="ref"``
 forces the plain version.  :func:`decode_attention` is the one decode entry
 point keyed off a :class:`~repro_torch.cache_layout.CacheLayout`, over the
 whole (dense | paged) x (16-bit | int8) x (ref | dense | flash) matrix.
-The gradient-compression entry points take the flat gradient, as JAX's do.
+The gradient-compression entry points take the flat gradient, as JAX's do;
+so do the embedding gather / scatter-add and the fused AdamW update.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from repro_torch.kernels.decode_attention import (
     flash_decode_attention, flash_decode_attention_paged,
     flash_decode_attention_paged_quant, flash_decode_attention_quant)
 from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels import embedding_ops as _embed
+from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import grad_compress as _gc
 from repro_torch.kernels import topk_sparsify as _topk
 
@@ -167,3 +170,37 @@ def topk_sparsify(g, k: int, block: int = 2048, impl="kernel"):
     fn = ref.topk_sparsify if impl == "ref" else _topk.topk_sparsify
     kept, resid = fn(x2d, k)
     return kept.reshape(N), resid.reshape(N)
+
+
+# -- embedding gather / scatter-add -------------------------------------------
+
+def embedding_gather(table, ids, impl="kernel"):
+    """table (V, D), ids (n,) -> (n, D) = table[ids] (ids in range)."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.gather_rows(table, ids)
+    return _embed.gather_rows(table, ids)
+
+
+def embedding_scatter_add(x, idx, n_rows: int, impl="kernel"):
+    """x (n, D), idx (n,) -> (n_rows, D) segment sum (duplicates added in
+    input order, exactly)."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.scatter_add_rows(x, idx, n_rows)
+    return _embed.scatter_add_rows(x, idx, n_rows)
+
+
+# -- fused AdamW -------------------------------------------------------------
+
+def adamw_update(p, g, m, v, lr, bc1, bc2, *, b1=0.9, b2=0.95, eps=1e-8,
+                 wd=0.1, impl="kernel"):
+    """Flat (N,) f32 p, g, m, v -> (p', m', v').  ``lr``, ``bc1``, ``bc2``
+    may be Python numbers or 0-d tensors; the kernel gets them, with the
+    constants, as one (8,) f32 tensor on p's device."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.adamw_update(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
+                                wd=wd, bc1=bc1, bc2=bc2)
+    return _adamw.adamw_update(p, g, m, v, _adamw.hyper(
+        lr, bc1, bc2, b1=b1, b2=b2, eps=eps, wd=wd, device=p.device))

@@ -222,3 +222,42 @@ def topk_sparsify_rounds(x2d, k: int):
         tmp = torch.where(tmp >= t, torch.full_like(tmp, -1.0), tmp)
     kept = torch.where(a >= t, x2d, torch.zeros_like(x2d))
     return kept, x2d - kept
+
+
+# ---------------------------------------------------------------------------
+# embedding gather / segment-sum scatter-add (the dedup-lookup pair)
+# ---------------------------------------------------------------------------
+
+def gather_rows(table, ids):
+    """table (V, D), ids (n,) -> (n, D) = table[ids]."""
+    return table[ids.long()]
+
+
+def scatter_add_rows(x, idx, n_rows: int):
+    """x (n, D), idx (n,) -> (n_rows, D) with out[idx[i]] += x[i] from
+    zeros (``jnp.zeros(...).at[idx].add(x)``), each id's rows added in
+    input order.  Two PyTorch calls keep that order: on the CPU
+    ``index_add_`` loops over idx (a large ``index_put_`` accumulates with
+    parallel atomics there); on CUDA the accumulating ``index_put_``
+    stably sorts idx and adds each id's rows one after another
+    (``index_add_`` uses atomics unless deterministic algorithms are
+    on)."""
+    out = torch.zeros((n_rows, x.shape[-1]), dtype=x.dtype, device=x.device)
+    if x.device.type == "cpu":
+        return out.index_add_(0, idx.long(), x)
+    return out.index_put_((idx.long(),), x, accumulate=True)
+
+
+# ---------------------------------------------------------------------------
+# fused AdamW update
+# ---------------------------------------------------------------------------
+
+def adamw_update(p, g, m, v, *, lr, b1, b2, eps, wd, bc1, bc2):
+    """bc1/bc2 are the bias corrections 1 - b^t (precomputed).  The
+    hyperparameters may be Python numbers or 0-d f32 tensors."""
+    m1 = b1 * m + (1 - b1) * g
+    v1 = b2 * v + (1 - b2) * torch.square(g)
+    mh = m1 / bc1
+    vh = v1 / bc2
+    p1 = p - lr * (mh / (torch.sqrt(vh) + eps) + wd * p)
+    return p1, m1, v1

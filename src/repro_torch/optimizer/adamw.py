@@ -5,8 +5,12 @@ the JAX pytree.  :func:`adamw_apply` is functional, as in the JAX package:
 it returns new parameters (in each parameter's own dtype, so bf16 weights
 keep an f32 master) and a new state, and changes none of its inputs.
 
-``use_kernel=True`` would route each leaf through the fused AdamW kernel
-(``repro/kernels/fused_adamw.py``), which is not ported yet: it raises.
+``use_kernel=True`` routes each leaf whose size is a multiple of 1024 (the
+JAX package's rule) through the fused AdamW kernel
+(``kernels/fused_adamw.py``), with the step's hyperparameters built once
+on the device; the other leaves take the elementwise update.  The kernel
+takes any such leaf, also those whose shape the TPU kernel's tiling
+asserts on (ROADMAP.md, section 3).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.kernels import fused_adamw
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -43,8 +48,15 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), norm
 
 
-def _leaf_update(p32, g, m, v, lr, bc1, bc2, tc: TrainConfig):
+def _leaf_update(p32, g, m, v, lr, bc1, bc2, tc: TrainConfig, hyper=None):
+    """One leaf's (p', m', v'); through the fused kernel when ``hyper``
+    (its (8,) operand) is given and the leaf's size is a multiple of
+    1024."""
     g = g.to(torch.float32)
+    if hyper is not None and p32.numel() % (8 * 128) == 0:
+        out = fused_adamw.adamw_update(
+            *(x.contiguous().view(-1) for x in (p32, g, m, v)), hyper)
+        return tuple(x.view(p32.shape) for x in out)
     m1 = tc.b1 * m + (1 - tc.b1) * g
     v1 = tc.b2 * v + (1 - tc.b2) * torch.square(g)
     mh = m1 / bc1
@@ -57,21 +69,21 @@ def adamw_apply(params, grads, opt: Dict[str, Any], lr, tc: TrainConfig,
                 use_kernel: bool = False) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step.  Returns (new params in each param's dtype, new
     state).  ``lr`` is a float or a 0-d f32 tensor."""
-    if use_kernel:
-        raise NotImplementedError(
-            "adamw_apply(use_kernel=True): the fused AdamW kernel "
-            "(adamw_update) is not ported yet; see ROADMAP.md")
     step = opt["step"] + 1
     t = step.to(torch.float32)
     # the bias corrections in f32, as JAX computes b ** step.astype(f32)
-    bc1 = 1.0 - torch.pow(torch.tensor(tc.b1, dtype=torch.float32,
-                                       device=t.device), t)
-    bc2 = 1.0 - torch.pow(torch.tensor(tc.b2, dtype=torch.float32,
-                                       device=t.device), t)
+    # (filled on the device: a host-made tensor would wait for the queue)
+    bc1 = 1.0 - torch.pow(torch.full((), tc.b1, dtype=torch.float32,
+                                     device=t.device), t)
+    bc2 = 1.0 - torch.pow(torch.full((), tc.b2, dtype=torch.float32,
+                                     device=t.device), t)
     if tc.grad_clip > 0:
         grads, _ = clip_by_global_norm(grads, tc.grad_clip)
+    hyper = (fused_adamw.hyper(lr, bc1, bc2, b1=tc.b1, b2=tc.b2, eps=tc.eps,
+                               wd=tc.weight_decay, device=t.device)
+             if use_kernel else None)
     upd = tree_map(lambda p32, g, m0, v0: _leaf_update(p32, g, m0, v0, lr,
-                                                       bc1, bc2, tc),
+                                                       bc1, bc2, tc, hyper),
                    opt["master"], grads, opt["m"], opt["v"])
     # upd holds a (p, m, v) tuple at each leaf; tuples are leaves
     master, m, v = (tree_map(lambda u, i=i: u[i], upd) for i in range(3))

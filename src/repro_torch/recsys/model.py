@@ -10,7 +10,7 @@ are float32 whatever the LM's dtype.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -28,6 +28,14 @@ def embed_specs(cfg: ArchConfig, n_users: int, cf_dim: int = 64
         "cf_user": EmbedSpec("cf_user", rows=n_users, dim=cf_dim),
         "cf_item": EmbedSpec("cf_item", rows=cfg.padded_vocab, dim=cf_dim),
     }
+
+
+def embed_id_fns() -> Dict[str, Callable[[Dict], torch.Tensor]]:
+    """Which batch field indexes each sparse-synced table (for
+    ``runtime.trainer.EmbedSyncConfig``).  ``cf_item`` is scored densely
+    against every user (``u @ cf_item.T``), so only ``cf_user`` has a
+    sparse gradient."""
+    return {"cf_user": lambda batch: batch["user"]}
 
 
 def init_recllm(cfg: ArchConfig, n_users: int, generator: torch.Generator,

@@ -3,16 +3,20 @@ on reduced RecLLM-base (2 layers, float32, dataset scale 0.005).
 
 * World of one: an in-process gloo group (a ``FileStore`` under the test's
   temporary directory, set up once for the module) against JAX on a
-  one-device ``data`` mesh, every sync mode, 3 steps.
+  one-device ``data`` mesh, every sync mode and every case of
+  ``EMBED_CASES`` (cf_user synced rows-touched under flat and top-k sync,
+  with ``zero_opt``, and the fused AdamW switch), 3 steps.
 * World of two: two gloo ranks in subprocesses against JAX on a two-device
   ``data`` mesh (a subprocess with
   ``--xla_force_host_platform_device_count=2``), hierarchical, onebit and
-  topk, 2 steps.
+  topk, and the embed cases flat, top-k and ``zero_opt`` (962 users
+  split over two ranks), 2 steps.
 * Two pods of two: four gloo ranks laid out ``(pod, data)`` against JAX on
   a 2x2 ``("pod", "data")`` mesh, the same modes with ``inter_axis="pod"``
   (hierarchical: reduce-scatter in the pod, all-reduce across pods,
   all-gather in the pod; onebit/topk: the compressed sync in the pod, then
-  a mean across pods), 2 steps.
+  a mean across pods), and the embed cases flat and top-k (the rows
+  gathered over ``data``, then ``pod``), 2 steps.
 
 Every subprocess has its own timeout, so a hung rendezvous fails the test;
 the store is a file, so no port is shared between test workers.
@@ -43,6 +47,29 @@ SCALE = 0.005
 BATCH, SEQ, LR = 8, 16, 1e-2
 MODES = ("flat", "hierarchical", "onebit", "topk")
 WORLDN_MODES = ("hierarchical", "onebit", "topk")   # worlds of 2 and 4
+# The step under embed_sync (cf_user synced rows-touched) and the fused
+# AdamW switch: case -> its settings.  "embed" holds the EmbedSyncConfig
+# options beyond id_fns, "jax_embed" the JAX side's where they differ,
+# "clip" the grad_clip (default 1.0).  JAX's zero_opt clip sums the
+# top-level values of the grads and cannot take RecLLM's nested "lm"
+# (AttributeError): its zero_opt runs without clipping, and the port's
+# zero_opt with clipping is held to JAX's replicated optimizer.
+EMBED_CASES = {
+    "embed_flat": dict(mode="flat", embed={}),
+    "embed_flat_plain": dict(mode="flat", embed={"use_kernel": False}),
+    "embed_topk": dict(mode="topk", embed={"compress": "topk", "k": 8}),
+    "embed_zero": dict(mode="flat", embed={"zero_opt": True}, clip=0.0),
+    "embed_zero_clip": dict(mode="flat", embed={"zero_opt": True},
+                            jax_embed={}),
+    "adamw_kernel": dict(mode="flat", adamw_kernel=True),
+}
+# cases per (pods, data) world; zero_opt needs the 962 users to divide
+# over the ranks, which 4 does not
+WORLD_CASES = {
+    (1, 2): WORLDN_MODES + ("embed_flat", "embed_topk", "embed_zero",
+                            "embed_zero_clip"),
+    (2, 2): WORLDN_MODES + ("embed_flat", "embed_topk"),
+}
 TOL = 1e-5
 TIMEOUT_S = 240
 
@@ -62,9 +89,13 @@ def _batches(n_items, n_users, steps):
     return out
 
 
-def _train_kw():
+def _train_kw(clip=1.0):
     return dict(steps=50, learning_rate=LR, warmup_steps=2, weight_decay=0.0,
-                grad_clip=1.0, checkpoint_every=0)
+                grad_clip=clip, checkpoint_every=0)
+
+
+def _case(name):
+    return EMBED_CASES.get(name, {"mode": name})
 
 
 def _flat(tree, prefix=""):
@@ -90,9 +121,10 @@ def _nest(flat):
 
 # -- the two sides, each in the process (or subprocess) that runs it ---------
 
-def run_port(mesh, params_np, n_items, n_users, modes, steps,
+def run_port(mesh, params_np, n_items, n_users, cases, steps,
              use_kernel=True, inter_axis=None):
-    """{mode: [(loss, flat params, residual) per step]} from the port."""
+    """{case: [(loss, flat params, residual) per step]} from the port;
+    a case is a sync mode or a name in EMBED_CASES."""
     from repro_torch import convert
     from repro_torch.config import TrainConfig, get_arch, reduced
     from repro_torch.models.transformer import ModelCtx
@@ -103,21 +135,31 @@ def run_port(mesh, params_np, n_items, n_users, modes, steps,
                               vocab_size=n_items + 3, dtype="float32")
     ctx = ModelCtx(attn_chunk=8)
     out = {}
-    for mode in modes:
+    for name in cases:
+        case = _case(name)
         params = convert.params_from_numpy(_nest(params_np), device="cpu")
         opt = adamw.init_opt_state(params)
-        scfg = trainer.DPSyncConfig(mode=mode, use_kernel=use_kernel,
+        scfg = trainer.DPSyncConfig(mode=case["mode"], use_kernel=use_kernel,
                                     inter_axis=inter_axis)
-        resid = torch.zeros(trainer.residual_size(params, scfg))
+        esync = None
+        if "embed" in case:
+            esync = trainer.EmbedSyncConfig(id_fns=trec.embed_id_fns(),
+                                            **case["embed"])
+            if esync.zero_opt:
+                opt = trainer.shard_embed_opt(opt, esync, mesh, scfg)
+        resid = torch.zeros(trainer.residual_size(
+            params, scfg, exclude=esync.exclude if esync else ()))
         step = trainer.make_dp_train_step(
             lambda p, b: trec.recllm_loss(cfg, p, b, ctx)[0], mesh,
-            TrainConfig(**_train_kw()), scfg)
-        out[mode] = []
+            TrainConfig(**_train_kw(case.get("clip", 1.0))), scfg,
+            embed_sync=esync, params_shape=params,
+            adamw_kernel=case.get("adamw_kernel", False))
+        out[name] = []
         for b in _batches(n_items, n_users, steps):
             params, opt, resid, loss = step(
                 params, opt, resid, {k: torch.from_numpy(v)
                                      for k, v in b.items()})
-            out[mode].append((float(loss), _flat(_torch_np(params)),
+            out[name].append((float(loss), _flat(_torch_np(params)),
                               resid.numpy().copy()))
     return out
 
@@ -128,10 +170,11 @@ def _torch_np(tree):
     return tree.detach().numpy().copy()
 
 
-def run_jax(mesh, params_np, n_items, n_users, modes, steps,
+def run_jax(mesh, params_np, n_items, n_users, cases, steps,
             inter_axis=None):
     """The same from JAX; residuals as (P, N_pad), row ``data * pods +
-    pod`` (the batch's shard order over ``("data", "pod")``)."""
+    pod`` (the batch's shard order over ``("data", "pod")``).  The
+    adamw_kernel case runs JAX's step, which has no such switch."""
     import jax
     import jax.numpy as jnp
     from repro.config import TrainConfig, get_arch, reduced
@@ -144,19 +187,28 @@ def run_jax(mesh, params_np, n_items, n_users, modes, steps,
     ctx = ModelCtx(attn_chunk=8)
     P = mesh.size
     out = {}
-    for mode in modes:
+    for name in cases:
+        case = _case(name)
         params = jax.tree.map(jnp.asarray, _nest(params_np))
         opt = adamw.init_opt_state(params)
-        scfg = trainer.DPSyncConfig(mode=mode, inter_axis=inter_axis)
-        resid = jnp.zeros((P, trainer.residual_size(params, scfg)))
+        scfg = trainer.DPSyncConfig(mode=case["mode"], inter_axis=inter_axis)
+        esync = None
+        if "embed" in case:
+            esync = trainer.EmbedSyncConfig(
+                id_fns=jrec.embed_id_fns(),
+                **case.get("jax_embed", case["embed"]))
+        resid = jnp.zeros((P, trainer.residual_size(
+            params, scfg, exclude=esync.exclude if esync else ())))
         step = trainer.make_dp_train_step(
             lambda p, b: jrec.recllm_loss(cfg, p, b, ctx)[0], mesh,
-            TrainConfig(**_train_kw()), scfg)
-        out[mode] = []
+            TrainConfig(**_train_kw(case.get("clip", 1.0))), scfg,
+            embed_sync=esync,
+            params_shape=jax.eval_shape(lambda: params))
+        out[name] = []
         for b in _batches(n_items, n_users, steps):
             params, opt, resid, loss = step(
                 params, opt, resid, {k: jnp.asarray(v) for k, v in b.items()})
-            out[mode].append((float(loss), _flat(params),
+            out[name].append((float(loss), _flat(params),
                               np.asarray(resid)))
     return out
 
@@ -206,6 +258,48 @@ def test_dp_step_world_of_one_matches_jax(world1, init, mode):
     ref = run_jax(compat.make_mesh((1,), ("data",)), params_np, n_items,
                   n_users, (mode,), 3)
     _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("case", list(EMBED_CASES))
+def test_dp_step_embed_sync_world_of_one_matches_jax(world1, init, case):
+    """Rows-touched cf_user sync (flat, plain row ops, top-k with its row
+    compressor and the residual without the table, zero_opt with and
+    without clipping) and the fused AdamW switch, 3 steps."""
+    from repro import compat
+    params_np, n_items, n_users = init
+    port = run_port(world1, params_np, n_items, n_users, (case,), 3)
+    ref = run_jax(compat.make_mesh((1,), ("data",)), params_np, n_items,
+                  n_users, (case,), 3)
+    _assert_same(port, ref)
+
+
+def test_embed_sync_world_of_one_is_the_dense_sync(world1, init):
+    """On one rank the rows-touched sync is the dense gradient, so the
+    embed_sync step equals the flat step bit for bit (what chip_smoke.py
+    holds on the card at full width)."""
+    params_np, n_items, n_users = init
+    out = run_port(world1, params_np, n_items, n_users,
+                   ("flat", "embed_flat", "embed_flat_plain"), 2)
+    for name in ("embed_flat", "embed_flat_plain"):
+        for (l0, p0, _), (l1, p1, _) in zip(out["flat"], out[name]):
+            assert l0 == l1
+            for k in p0:
+                np.testing.assert_array_equal(p0[k], p1[k])
+
+
+def test_zero_opt_refuses_rows_that_do_not_divide(world1):
+    from repro_torch.config import TrainConfig
+    from repro_torch.runtime import trainer
+    esync = trainer.EmbedSyncConfig(id_fns={"t": lambda b: b["u"]},
+                                    zero_opt=True)
+    with pytest.raises(ValueError, match="params_shape"):
+        trainer.make_dp_train_step(None, world1, TrainConfig(),
+                                   embed_sync=esync)
+    mesh2 = dataclasses.replace(world1, shape={"pod": 1, "data": 2})
+    with pytest.raises(ValueError, match="7 rows do not divide over 2"):
+        trainer.make_dp_train_step(None, mesh2, TrainConfig(),
+                                   embed_sync=esync,
+                                   params_shape={"t": torch.zeros(7, 2)})
 
 
 @pytest.mark.parametrize("mode", ["onebit", "topk"])
@@ -310,7 +404,7 @@ def _check_world(tmp, procs, pods, data):
     ranks = [_load(tmp / f"r{r}.npz") for r in range(pods * data)]
     for rank, port in enumerate(ranks):
         _assert_same(port, ref, (rank % data) * pods + rank // data)
-    for mode in WORLDN_MODES:
+    for mode in WORLD_CASES[pods, data]:
         for other in ranks[1:]:
             for (_, p0, _), (_, p1, _) in zip(ranks[0][mode], other[mode]):
                 for k in p0:
@@ -382,8 +476,8 @@ def _subprocess_main(argv):
         from repro import compat
         mesh = (compat.make_mesh((pods, data), ("pod", "data")) if inter_axis
                 else compat.make_mesh((data,), ("data",)))
-        out = run_jax(mesh, params_np, n_items, n_users, WORLDN_MODES, 2,
-                      inter_axis=inter_axis)
+        out = run_jax(mesh, params_np, n_items, n_users,
+                      WORLD_CASES[pods, data], 2, inter_axis=inter_axis)
     else:
         from repro_torch.core import hierarchical
         rank, store_path = int(rest[0]), rest[1]
@@ -393,7 +487,7 @@ def _subprocess_main(argv):
             world_size=pods * data)
         try:
             out = run_port(hierarchical.make_dp_mesh(pods), params_np,
-                           n_items, n_users, WORLDN_MODES, 2,
+                           n_items, n_users, WORLD_CASES[pods, data], 2,
                            inter_axis=inter_axis)
         finally:
             dist.destroy_process_group()

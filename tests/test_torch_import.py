@@ -44,8 +44,8 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-# every module of the serving and training slices, so the walks below
-# cannot go vacuous
+# every module of the serving, training and sparse-embedding slices, so
+# the walks below cannot go vacuous
 SLICE_MODULES = (
     "cache_layout.py", "convert.py", "kernels/_build.py",
     "kernels/decode_attention.py", "kernels/flash_attention.py",
@@ -57,7 +57,9 @@ SLICE_MODULES = (
     "recsys/model.py", "recsys/dataset.py", "recsys/metrics.py",
     "kernels/grad_compress.py", "kernels/topk_sparsify.py",
     "core/hierarchical.py", "core/compression.py", "runtime/trainer.py",
-    "launch/train_recsys.py",
+    "launch/train_recsys.py", "kernels/embedding_ops.py",
+    "kernels/fused_adamw.py", "embeddings/update.py",
+    "embeddings/__init__.py",
 )
 
 

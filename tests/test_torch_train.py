@@ -6,7 +6,9 @@ JAX params (``recsys.model.init_recllm``) go through
 packages.  Tolerances: gradients within 1e-5 of each leaf's largest |g|
 (the packages sum in other orders); losses and logits 1e-4 absolute;
 AdamW state 1e-6 relative over 3 steps, bf16 params within one bf16 ulp
-of JAX's; the schedule 1e-7 relative; HR/NDCG and dataset arrays exactly.
+of JAX's, and through the fused AdamW kernels 1e-6 absolute + 1e-5
+relative (the Pallas kernel's own tolerance); the schedule 1e-7 relative;
+HR/NDCG and dataset arrays exactly.
 """
 import dataclasses
 import os
@@ -24,6 +26,7 @@ from repro.config import TrainConfig as JTrainConfig
 from repro.config import get_arch as jget_arch
 from repro.config import reduced as jreduced
 from repro.embeddings import dedup_ids as jdedup_ids
+from repro.kernels import ops as jops
 from repro.models import transformer as jtf
 from repro.optimizer import adamw as jadamw
 from repro.optimizer import schedule as jschedule
@@ -178,11 +181,91 @@ def test_update_rule_matches_jax():
         assert int(jo["step"]) == int(to["step"]) == s + 1
 
 
-def test_adamw_kernel_switch_raises_until_ported():
-    p = {"w": torch.zeros(1024)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adamw.adamw_apply(p, p, adamw.init_opt_state(p), 1e-3, TrainConfig(),
-                          use_kernel=True)
+# the fused AdamW kernel's plain version against the Pallas kernel, held
+# as tests/test_kernels.py holds the Pallas kernel to its oracle (the
+# kernel computes (1 - b2) * g * g, the oracle (1 - b2) * g**2)
+ADAMW_TOL = dict(atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("N", [8 * 2048, 8 * 4096])
+def test_adamw_update_matches_pallas(N):
+    rng = np.random.default_rng(N)
+    p, g, m, v = (rng.standard_normal(N).astype(np.float32)
+                  for _ in range(4))
+    v = np.abs(v)
+    step = 3
+    bc1, bc2 = 1 - 0.9 ** step, 1 - 0.95 ** step
+    want = jops.adamw_update(*map(jnp.asarray, (p, g, m, v)), 1e-3, bc1, bc2)
+    for impl in ("kernel", "ref"):
+        got = tops.adamw_update(*map(torch.from_numpy, (p, g, m, v)), 1e-3,
+                                bc1, bc2, impl=impl)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **ADAMW_TOL)
+
+
+def _reduced_tree(seed):
+    """RecLLM's parameter shapes at 2 layers, d_model 64, 962 users and a
+    vocab of 256: every leaf the kernel route takes has a shape the Pallas
+    kernel's tiling accepts, so JAX's own kernel route can run."""
+    cfg = dataclasses.replace(jreduced(jget_arch("recllm-base"), layers=2),
+                              vocab_size=256, dtype="float32")
+    shapes = jax.eval_shape(lambda: jrec.init_recllm(jax.random.PRNGKey(0),
+                                                     cfg, 962))
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(
+        np.float32), shapes)
+
+
+def test_adamw_apply_kernel_route_matches_jax_on_recllm():
+    """``use_kernel=True`` on both sides over 3 steps with clipping: the
+    leaves whose size is a multiple of 1024 take the fused kernels (the
+    Pallas one in interpret mode, the port's plain version on the CPU),
+    the rest the elementwise update."""
+    p0 = _reduced_tree(0)
+    jp, tp = jax.tree.map(jnp.asarray, p0), convert.params_from_numpy(
+        p0, device="cpu")
+    jt = JTrainConfig(weight_decay=0.1, grad_clip=1.0)
+    tt = TrainConfig(weight_decay=0.1, grad_clip=1.0)
+    jo, to = jadamw.init_opt_state(jp), adamw.init_opt_state(tp)
+    routed = [x.size for x in jax.tree.leaves(p0) if x.size % 1024 == 0]
+    assert len(routed) == 9 and len(jax.tree.leaves(p0)) == 14
+    for s in range(3):
+        g = jax.tree.map(lambda x: 10 * x, _reduced_tree(10 + s))
+        lr = 1e-2 * (s + 1)
+        jp, jo = jadamw.adamw_apply(jp, jax.tree.map(jnp.asarray, g), jo, lr,
+                                    jt, use_kernel=True)
+        tp, to = adamw.adamw_apply(tp, convert.params_from_numpy(
+            g, device="cpu"), to, lr, tt, use_kernel=True)
+        for key in ("master", "m", "v"):
+            for a, b in zip(jax.tree.leaves(jo[key]), tree_leaves(to[key])):
+                np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                           **ADAMW_TOL)
+
+
+@pytest.mark.parametrize("N", [17_408, 20_480], ids=["17408", "cf_item"])
+def test_adamw_kernel_route_takes_leaves_the_pallas_kernel_rejects(N):
+    """N / 8 above 2048 and not a multiple of it: JAX's kernel route
+    asserts (17,408; and 20,480, the scale-0.005 RecLLM's ``cf_item`` and
+    ``embed``), the port's kernel takes any N and computes the update JAX
+    computes without the kernel."""
+    rng = np.random.default_rng(1)
+    p0 = {"w": rng.standard_normal(N).astype(np.float32)}
+    g = {"w": rng.standard_normal(N).astype(np.float32)}
+    jp = jax.tree.map(jnp.asarray, p0)
+    jt, tt = JTrainConfig(), TrainConfig()
+    with pytest.raises(AssertionError):
+        jadamw.adamw_apply(jp, jax.tree.map(jnp.asarray, g),
+                           jadamw.init_opt_state(jp), 1e-3, jt,
+                           use_kernel=True)
+    jp1, jo1 = jadamw.adamw_apply(jp, jax.tree.map(jnp.asarray, g),
+                                  jadamw.init_opt_state(jp), 1e-3, jt)
+    tp = tree_map(torch.from_numpy, p0)
+    tp1, to1 = adamw.adamw_apply(tp, tree_map(torch.from_numpy, g),
+                                 adamw.init_opt_state(tp), 1e-3, tt,
+                                 use_kernel=True)
+    for key in ("master", "m", "v"):
+        np.testing.assert_allclose(to1[key]["w"].numpy(),
+                                   np.asarray(jo1[key]["w"]), **ADAMW_TOL)
 
 
 def test_warmup_cosine_and_constant_match_jax():
@@ -331,3 +414,4 @@ def test_train_recsys_launcher_runs_on_the_cpu():
          "topk"], env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "HR@10" in out.stdout.splitlines()[-1], out.stdout
+
