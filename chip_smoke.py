@@ -32,8 +32,13 @@ failing the run with a non-zero exit when its check fails:
    adamw_update at N = 16,384 to 48,414,720, 17,408 (a shape the TPU
    kernel's tiling rejects) and cf_item's 4,034,560 within 1e-6 + 1e-5
    relative; timed at the path's shapes beside ``index_select``,
-   ``index_add_`` and ``torch._fused_adamw_``.  Every kernel wrapper must
-   raise on inputs that require grad;
+   ``index_add_`` and ``torch._fused_adamw_``.  The MoE router at the
+   MoE serving shapes (T, E, k) in ``ROUTER_CASES``, with a row of equal
+   logits (experts 0..k-1, gates 1/k) and a row of duplicated maxima (the
+   lowest index first): probs and gates within 1e-6, indices equal except
+   on rows whose top k + 1 probs hold a near-tie (counted); timed beside
+   ``torch.softmax`` -> ``torch.topk`` -> normalise.  Every kernel wrapper
+   must raise on inputs that require grad;
 3. serving RecLLM-base at full width in bf16 (random weights from a seeded
    generator) through ``repro_torch.serving``: 16 Poisson requests on 8
    slots of 512 positions with both attention kernels on, under the dense
@@ -52,7 +57,20 @@ failing the run with a non-zero exit when its check fails:
    layout's workload once more under ``torch.profiler`` gives the device's
    busy share, its top kernels and the attention kernels' device time per
    launch on the main path;
-4. training RecLLM-base at full width in float32 (178.0M parameters, the
+4. serving the MoE archs at full width in bf16 with the router kernel on
+   every MoE FFN and both attention kernels on: Moonlight-16B-A3B cut to
+   12 of its 48 layers (7.52B parameters, 15.0 GB) under the dense,
+   paged, int8 and paged int8 layouts and once with the plain router, and
+   Qwen3-30B-A3B (qk-norm, 128 experts top 8) cut to 4 layers, dense; the
+   same 16 requests on 8 slots of 512.  Each run: every request served,
+   ``moe_router`` launched once per layer per prefill and decode step (0
+   with the plain router), the attention kernels as in phase 3; a
+   profile of each gives the device's busy share and the router kernel's
+   device time per launch.  The router kernel's and the plain router's
+   greedy streams are compared (the first divergence printed), and their
+   first prefill row and decode step logits must be finite and within
+   2e-2 of the largest logit;
+5. training RecLLM-base at full width in float32 (178.0M parameters, the
    full dataset, batch 32 x seq 32) through ``repro_torch.runtime.trainer``'s
    data-parallel step on a one-rank NCCL group: 20 steps each under flat,
    hierarchical, 1-bit and top-k sync with the kernels, then 1-bit and
@@ -154,6 +172,8 @@ KERNELS = {
                          "src/repro/kernels/embedding_ops.py:62"),
     "adamw_update": ("src/repro_torch/kernels/csrc/fused_adamw.cu",
                      "src/repro/kernels/fused_adamw.py:29"),
+    "moe_router": ("src/repro_torch/kernels/csrc/moe_router.cu",
+                   "src/repro/kernels/moe_router.py:39"),
 }
 NO_LIBRARY = {
     "flash_decode_quant": "no PyTorch call attends over int8 values with "
@@ -184,6 +204,7 @@ def _wrappers():
     from repro_torch.kernels import embedding_ops as eo
     from repro_torch.kernels import fused_adamw as fa
     from repro_torch.kernels import grad_compress as gc
+    from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import topk_sparsify as tk
     from repro_torch.kernels.flash_attention import flash_attention
     return {"flash_attention": flash_attention,
@@ -196,7 +217,8 @@ def _wrappers():
             "topk_sparsify": tk.topk_sparsify,
             "gather_rows": eo.gather_rows,
             "scatter_add_rows": eo.scatter_add_rows,
-            "adamw_update": fa.adamw_update}
+            "adamw_update": fa.adamw_update,
+            "moe_router": mr.moe_router}
 
 
 def reset_launches():
@@ -602,10 +624,11 @@ def _first_divergence(a, b):
 def _device_time(torch, fn):
     """Run fn under torch.profiler; return {kernel name: (summed GPU time
     in ms, launches)}.  Kernels on one stream never overlap, so the sum
-    over names is the time the device was busy."""
+    over names is the time the device was busy.  Only the device is
+    traced: host-side operator events would add nothing read here and
+    most of the trace's processing time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
@@ -614,6 +637,102 @@ def _device_time(torch, fn):
             ms, n = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
     return by_name
+
+
+def serve_measured(name, cfg, ecfg, run, n_requests, per_layer):
+    """Warm-up, then one run between a reset and a read of every launch
+    counter.  Every request must finish, and each kernel in ``per_layer``
+    (name -> "prefill", "decode" or "both") must have launched once per
+    layer per prefill, per decode step or per both, every other kernel
+    never.  Returns ({summary, wall_s, launches}, the token streams)."""
+    run()                                   # warm-up: CUDA, cuBLAS init
+    reset_launches()
+    t0 = time.perf_counter()
+    outputs, _, summary = run()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(summary["finished"] == n_requests and summary["rejected"] == 0,
+          f"{name}: served {summary['finished']}/{n_requests} requests")
+    L = cfg.num_layers
+    steps = {"prefill": summary["prefills"],
+             "decode": summary["decode_steps"]}
+    steps["both"] = steps["prefill"] + steps["decode"]
+    want = {k: 0 for k in launches}
+    want.update({k: L * steps[when] for k, when in per_layer.items()})
+    check(launches == want, f"{name}: launches {launches}, want {want} "
+          f"({steps['prefill']} prefills, {steps['decode']} decode steps "
+          f"of {L} layers)")
+    t, p = summary["ttft_s"], summary["tpot_s"]
+    print(f"[serve {name}] {cfg.name} ({L} layers) {cfg.dtype}, "
+          f"{ecfg.n_slots} slots x {ecfg.max_len}: "
+          f"{summary['finished']}/{n_requests} requests, "
+          f"{summary['tokens_out']} tokens, {steps['prefill']} prefills, "
+          f"{steps['decode']} decode steps in {wall_s:.3f} s; "
+          f"{summary['throughput_tok_s']:.1f} tok/s; TTFT p50 "
+          f"{t['p50'] * 1e3:.2f} ms p99 {t['p99'] * 1e3:.2f} ms; TPOT "
+          f"p50 {p['p50'] * 1e3:.2f} ms p99 {p['p99'] * 1e3:.2f} ms; "
+          f"kv_bytes_per_step {summary['kv_bytes_per_step']:.0f}"
+          + (f"; paged {summary['paged']}" if "paged" in summary else ""))
+    print(f"[serve {name}] launches: " + ", ".join(
+        f"{k} {launches[k]} = {L} x {steps[w]} "
+        + {"prefill": "prefills", "decode": "decode steps",
+           "both": "prefills + decode steps"}[w]
+        for k, w in per_layer.items()) + ", every other kernel 0")
+    return {"summary": summary, "wall_s": wall_s,
+            "launches": launches}, outputs
+
+
+def profile_serve(torch, name, run, wall_s, tags):
+    """The workload once more under ``torch.profiler``: device busy time
+    over the measured (unprofiled) run's wall time, the top kernels, and
+    the device time per launch of each kernel in ``tags`` (report name ->
+    a substring of its CUDA kernel's name)."""
+    by_name = _device_time(torch, run)
+    wall_ms = wall_s * 1e3
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(((n, ms) for n, (ms, _) in by_name.items()),
+                 key=lambda kv: -kv[1])[:6]
+    per_launch = {}
+    for kname, tag in tags.items():
+        hits = [v for n, v in by_name.items() if tag in n]
+        if hits:
+            per_launch[kname] = (sum(ms for ms, _ in hits)
+                                 / sum(c for _, c in hits))
+    if busy_ms > 0:
+        print(f"[profile {name}] device busy {busy_ms:.2f} ms of the "
+              f"measured run's {wall_ms:.1f} ms wall "
+              f"({busy_ms / wall_ms:.1%}); device ms per launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
+              + "; top kernels: " + "; ".join(
+                  f"{n[:48]} {ms:.2f} ms" for n, ms in top))
+    else:
+        print(f"[profile {name}] the profiler recorded no device time: "
+              "device busy share not measured")
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+            "busy_share": busy_ms / wall_ms, "top_kernels_ms": top,
+            "device_ms_per_launch": per_launch}
+
+
+def first_logits(torch, tf, cfg, params, ctx, prompt, ecfg, nxt_token=None):
+    """The prefill row of ``prompt`` (padded to a multiple of 8) in slot 0
+    and the logits of the first decode step after it, fed ``nxt_token``
+    (the row's argmax when None), through ``ctx``."""
+    dev = torch.device("cuda")
+    toks = torch.zeros((1, -(-len(prompt) // 8) * 8), dtype=torch.long,
+                       device=dev)
+    toks[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+    with torch.inference_mode():
+        cache = tf.init_slots(cfg, ecfg.n_slots, ecfg.max_len, device=dev)
+        row, cache = tf.prefill_into_slot(cfg, params, cache, toks,
+                                          len(prompt), 0, ctx)
+        nxt = torch.zeros((ecfg.n_slots, 1), dtype=torch.long, device=dev)
+        nxt[0, 0] = torch.argmax(row) if nxt_token is None else nxt_token
+        step, _ = tf.decode_step(cfg, params, cache, nxt, ctx)
+    return row, step
+
+
+ATTN_TAGS = {"flash_attention": "flash_attention_kernel",
+             "decode": "flash_decode_kernel"}
 
 
 # serving layouts beyond the dense bf16 cache: name -> (CacheLayout kwargs,
@@ -641,7 +760,6 @@ def phase_serving(torch):
                                       vocab_size=cfg.vocab_size, seed=0))
     kern = tf.ModelCtx(attn_impl="flash", decode_impl="flash", attn_chunk=8)
     plain = tf.ModelCtx(attn_chunk=8)       # chunked prefill, dense decode
-    L = cfg.num_layers
 
     def params_for(c):
         return convert.init_params(
@@ -660,43 +778,10 @@ def phase_serving(torch):
         return Clock(fixed_decode_s=0.01, fixed_prefill_s=0.02)
 
     def measured(name, layout, decode_kernel):
-        """Warm-up, then one run between a reset and a read of every launch
-        counter; checks completion and launch counts."""
-        run(cfg, params, kern, layout=layout)   # warm-up: CUDA, cuBLAS init
-        reset_launches()
-        t0 = time.perf_counter()
-        out = run(cfg, params, kern, layout=layout)
-        wall_s = time.perf_counter() - t0
-        launches = read_launches()
-        summary = out[2]
-        check(summary["finished"] == len(requests)
-              and summary["rejected"] == 0,
-              f"{name}: served {summary['finished']}/{len(requests)} "
-              "requests")
-        want = {k: 0 for k in launches}
-        want["flash_attention"] = L * summary["prefills"]
-        want[decode_kernel] = L * summary["decode_steps"]
-        check(launches == want, f"{name}: launches {launches}, want {want} "
-              f"({summary['prefills']} prefills, {summary['decode_steps']} "
-              f"decode steps of {L} layers)")
-        t, p = summary["ttft_s"], summary["tpot_s"]
-        print(f"[serve {name}] {cfg.name} bf16, {ecfg.n_slots} slots x "
-              f"{ecfg.max_len}: {summary['finished']}/{len(requests)} "
-              f"requests, {summary['tokens_out']} tokens, "
-              f"{summary['prefills']} prefills, {summary['decode_steps']} "
-              f"decode steps in {wall_s:.3f} s; "
-              f"{summary['throughput_tok_s']:.1f} tok/s; TTFT p50 "
-              f"{t['p50'] * 1e3:.2f} ms p99 {t['p99'] * 1e3:.2f} ms; TPOT "
-              f"p50 {p['p50'] * 1e3:.2f} ms p99 {p['p99'] * 1e3:.2f} ms; "
-              f"kv_bytes_per_step {summary['kv_bytes_per_step']:.0f}"
-              + (f"; paged {summary['paged']}" if "paged" in summary
-                 else ""))
-        print(f"[serve {name}] launches: flash_attention "
-              f"{launches['flash_attention']} = {L} x {summary['prefills']} "
-              f"prefills, {decode_kernel} {launches[decode_kernel]} = {L} x "
-              f"{summary['decode_steps']} decode steps, other decode "
-              "kernels 0")
-        return {"summary": summary, "wall_s": wall_s, "launches": launches}
+        return serve_measured(
+            name, cfg, ecfg, lambda: run(cfg, params, kern, layout=layout),
+            len(requests),
+            {"flash_attention": "prefill", decode_kernel: "decode"})[0]
 
     params = params_for(cfg)
     report = {"runs": {"dense": measured("dense", None, "flash_decode")}}
@@ -710,33 +795,9 @@ def phase_serving(torch):
     report["profile"] = {}
     for name, (kw, _) in [("dense", ({}, None)), *LAYOUTS.items()]:
         layout = CacheLayout(impl="flash", **kw) if kw else None
-        by_name = _device_time(torch, lambda: run(cfg, params, kern,
-                                                  layout=layout))
-        wall_ms = report["runs"][name]["wall_s"] * 1e3
-        busy_ms = sum(ms for ms, _ in by_name.values())
-        top = sorted(((n, ms) for n, (ms, _) in by_name.items()),
-                     key=lambda kv: -kv[1])[:6]
-        per_launch = {}
-        for kname, tag in (("flash_attention", "flash_attention_kernel"),
-                           ("decode", "flash_decode_kernel")):
-            hits = [v for n, v in by_name.items() if tag in n]
-            if hits:
-                per_launch[kname] = (sum(ms for ms, _ in hits)
-                                     / sum(c for _, c in hits))
-        report["profile"][name] = {
-            "device_busy_ms": busy_ms, "wall_ms": wall_ms,
-            "busy_share": busy_ms / wall_ms, "top_kernels_ms": top,
-            "device_ms_per_launch": per_launch}
-        if busy_ms > 0:
-            print(f"[profile {name}] device busy {busy_ms:.2f} ms of the "
-                  f"measured run's {wall_ms:.1f} ms wall "
-                  f"({busy_ms / wall_ms:.1%}); device ms per launch: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
-                  + "; top kernels: " + "; ".join(
-                      f"{n[:48]} {ms:.2f} ms" for n, ms in top))
-        else:
-            print(f"[profile {name}] the profiler recorded no device time: "
-                  "device busy share not measured")
+        report["profile"][name] = profile_serve(
+            torch, name, lambda: run(cfg, params, kern, layout=layout),
+            report["runs"][name]["wall_s"], ATTN_TAGS)
 
     # first prefill row and first decode step: kernels vs plain path, in
     # bf16 (max abs diff relative to the largest plain logit: two bf16
@@ -744,25 +805,16 @@ def phase_serving(torch):
     # by a few ulps of the largest logits) and in float32 (absolute)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = params_for(cfg32)
-    req = requests[0]
-    s_pad = -(-len(req.prompt) // 8) * 8
-    toks = torch.zeros((1, s_pad), dtype=torch.long, device=dev)
-    toks[0, :len(req.prompt)] = torch.tensor(req.prompt, device=dev)
     logit_errs = {}
     for dname, c, ps, tol, relative in (
             ("bfloat16", cfg, params, BF16_TOL, True),
             ("float32", cfg32, params32, F32_TOL, False)):
         rows, steps = {}, {}
-        with torch.inference_mode():
-            for name, ctx in (("kernels", kern), ("plain", plain)):
-                cache = tf.init_slots(c, ecfg.n_slots, ecfg.max_len,
-                                      device=dev)
-                rows[name], cache = tf.prefill_into_slot(
-                    c, ps, cache, toks, len(req.prompt), 0, ctx)
-                nxt = torch.zeros((ecfg.n_slots, 1), dtype=torch.long,
-                                  device=dev)
-                nxt[0, 0] = torch.argmax(rows["kernels"])
-                steps[name], _ = tf.decode_step(c, ps, cache, nxt, ctx)
+        for name, ctx in (("kernels", kern), ("plain", plain)):
+            # both decode steps take the kernel path's first token
+            tok = torch.argmax(rows["kernels"]) if rows else None
+            rows[name], steps[name] = first_logits(
+                torch, tf, c, ps, ctx, requests[0].prompt, ecfg, tok)
         scale = (max(float(rows["plain"].float().abs().max()),
                      float(steps["plain"].float().abs().max()))
                  if relative else 1.0)
@@ -855,6 +907,114 @@ def phase_serving(torch):
     print(f"[serve] prefix sharing, 4 x one 40-token prompt, blocks of "
           f"{BLOCK_MAIN}: {pg}; pool drained; float32 streams == dense")
     report["prefix_sharing"] = pg
+    return report
+
+
+# -- MoE serving --------------------------------------------------------------
+
+# (run prefix, arch, layers kept of its 48): full width, depth cut to fit
+# the smoke run's time beside the RecLLM phases
+MOE_SERVE = [("moonlight", "moonshot-v1-16b-a3b", 12),
+             ("qwen3", "qwen3-moe-30b-a3b", 4)]
+ROUTER_TAGS = dict(ATTN_TAGS, moe_router="moe_router_kernel")
+
+
+def phase_moe_serving(torch):
+    """The MoE archs at full width in bf16 through ``repro_torch.serving``
+    with every MoE FFN routed through the router kernel: Moonlight under
+    the dense, paged, int8 and paged int8 layouts and once with the plain
+    router; Qwen3 (qk-norm, 128 experts top 8, GQA 32 on 4) dense."""
+    from repro_torch import convert
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (CacheLayout, EngineConfig,
+                                     ServingEngine, TrafficConfig, generate,
+                                     make_backend)
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    ecfg = EngineConfig(n_slots=8, max_len=512)
+    kern = tf.ModelCtx(attn_impl="flash", decode_impl="flash", attn_chunk=8,
+                       use_kernels=True)
+    plain_router = dataclasses.replace(kern, use_kernels=False)
+    report = {"runs": {}, "profile": {}, "models": {}}
+    for short, arch, layers in MOE_SERVE:
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        params = convert.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        leaves = tree_leaves(params)
+        n_params = sum(t.numel() for t in leaves)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        print(f"[moe {short}] {arch}: {layers} of 48 layers at full width "
+              f"(d_model {cfg.d_model}, {cfg.num_heads} heads on "
+              f"{cfg.num_kv_heads} x {cfg.head_dim}, {cfg.num_experts} "
+              f"experts top {cfg.experts_per_token} of d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size:,}), {cfg.dtype}: {n_params:,} "
+              f"parameters, {n_bytes / 1e9:.2f} GB")
+        report["models"][short] = {"arch": arch, "layers": layers,
+                                   "params": n_params, "bytes": n_bytes}
+        requests = generate(TrafficConfig(n_requests=16,
+                                          vocab_size=cfg.vocab_size, seed=0))
+
+        def run(ctx, layout=None):
+            e = ecfg if layout is None else dataclasses.replace(
+                ecfg, layout=layout)
+            return ServingEngine(make_backend(cfg, params, ctx, layout=layout,
+                                              device=dev), e).run(requests)
+
+        runs = [("dense", kern, None, "flash_decode")]
+        if short == "moonlight":
+            runs.append(("dense_plain_router", plain_router, None,
+                         "flash_decode"))
+            runs += [(name, kern, CacheLayout(impl="flash", **kw), kname)
+                     for name, (kw, kname) in LAYOUTS.items()]
+        streams = {}
+        for name, ctx, layout, dkern in runs:
+            per_layer = {"flash_attention": "prefill", dkern: "decode"}
+            if ctx.use_kernels:
+                per_layer["moe_router"] = "both"
+            key = f"{short}_{name}"
+            fn = (lambda ctx=ctx, layout=layout: run(ctx, layout))
+            report["runs"][key], streams[name] = serve_measured(
+                key, cfg, ecfg, fn, len(requests), per_layer)
+            report["profile"][key] = profile_serve(
+                torch, key, fn, report["runs"][key]["wall_s"], ROUTER_TAGS)
+
+        if short == "moonlight":
+            div = _first_divergence(streams["dense"],
+                                    streams["dense_plain_router"])
+            report["router_stream_divergence"] = div
+            n_tok = sum(len(v) for v in streams["dense"].values())
+            print(f"[moe {short}] greedy streams, router kernel vs plain "
+                  "router: " + ("equal" if div is None else
+                                f"first differ at (rid, token) {div}")
+                  + f" ({n_tok} tokens)")
+            # the first prefill row and decode step through both routers:
+            # finite, and within the bf16 tolerance of the largest logit
+            rows, steps = {}, {}
+            for name, ctx in (("kernel", kern), ("plain", plain_router)):
+                tok = torch.argmax(rows["kernel"]) if rows else None
+                rows[name], steps[name] = first_logits(
+                    torch, tf, cfg, params, ctx, requests[0].prompt, ecfg,
+                    tok)
+            check(all(bool(torch.isfinite(x).all())
+                      for x in (*rows.values(), *steps.values())),
+                  f"{arch}: non-finite logits")
+            scale = max(float(rows["plain"].float().abs().max()),
+                        float(steps["plain"].float().abs().max()))
+            e = {"prefill_abs": _max_err(rows["kernel"], rows["plain"]),
+                 "decode_abs": _max_err(steps["kernel"], steps["plain"]),
+                 "largest_logit": scale}
+            report["router_logit_errs"] = e
+            print(f"[moe {short}] bf16 logits, router kernel vs plain "
+                  f"router: first prefill row max abs diff "
+                  f"{e['prefill_abs']:.3g}, first decode step "
+                  f"{e['decode_abs']:.3g} (tolerance {BF16_TOL} relative to "
+                  f"the largest logit {scale:.3g})")
+            check(max(e["prefill_abs"], e["decode_abs"]) <= BF16_TOL * scale,
+                  f"{arch}: the router kernel's logits differ from the "
+                  f"plain router's: {e}")
+        params = leaves = None               # free the weights for the next
+        torch.cuda.empty_cache()
     return report
 
 
@@ -1196,6 +1356,97 @@ def phase_embed_kernels(torch, report):
     return report
 
 
+# -- MoE router ---------------------------------------------------------------
+
+# (T, E, k): decode (T = 8 slots) and prompt-bucket shapes of Moonlight
+# (64 experts, top 6) and Qwen3 (128, top 8), a large batch, the smallest
+ROUTER_CASES = [(8, 64, 6), (64, 64, 6), (4096, 64, 6), (8, 128, 8),
+                (1000, 128, 8), (1, 8, 2)]
+ROUTER_TIMED = [(8, 64, 6), (64, 64, 6), (4096, 64, 6), (8, 128, 8)]
+ROUTER_TOL = 1e-6        # probs and gates, absolute; idx exact off near-ties
+ROUTER_TIE_GAP = 1e-6    # top k + 1 probs this close may order either way
+
+
+def router_inputs(torch, inp, T, E, k):
+    """Seeded (T, E) f32 logits; with T >= 3, row 0 all equal (experts
+    0..k-1, gates 1/k) and row 1 with three equal maxima."""
+    x = inp.randn(T, E, dtype=torch.float32)
+    if T >= 3:
+        x[0] = 0.25
+        x[1, [3, E - 2, E // 2]] = float(x[1].max()) + 1.0
+    return x
+
+
+def phase_router_kernel(torch, report):
+    """moe_router against its plain version at the MoE serving shapes, the
+    tie rows included, then timed; rows added to ``report["timing"]``."""
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    inp = Inputs(torch)
+    errs, near_ties = {}, 0
+    for T, E, k in ROUTER_CASES:
+        x = router_inputs(torch, inp, T, E, k)
+        (g, i, p), (pg, pi, pp) = mr.moe_router(x, k), ref.moe_router(x, k)
+        err = max(_max_err(p, pp), _max_err(g, pg))
+        check(err <= ROUTER_TOL, f"moe_router ({T}, {E}, {k}): probs or "
+              f"gates {err} from the plain version > {ROUTER_TOL}")
+        # rows whose top k + 1 plain probs hold two within the tie gap may
+        # order those experts either way; every other row must match
+        top = torch.topk(pp, min(k + 1, E), dim=-1).values
+        tied = (top[:, :-1] - top[:, 1:] < ROUTER_TIE_GAP).any(-1)
+        differ = (i != pi).any(-1)
+        check(not bool((differ & ~tied).any()),
+              f"moe_router ({T}, {E}, {k}): indices differ from the plain "
+              f"version on {int((differ & ~tied).sum())} rows without a "
+              "near-tie")
+        near_ties += int((differ & tied).sum())
+        if T >= 3:
+            check(i[0].tolist() == list(range(k))
+                  and bool(torch.allclose(g[0], torch.full_like(g[0], 1 / k),
+                                          atol=ROUTER_TOL, rtol=0))
+                  and i[1, :3].tolist() == [3, E // 2, E - 2][:k],
+                  f"moe_router ({T}, {E}, {k}): tie rows {i[:2].tolist()}")
+        errs[(T, E, k)] = err
+    print(f"[kernels] moe_router: {len(ROUTER_CASES)} cases (T, E, k) in "
+          f"{ROUTER_CASES} within {ROUTER_TOL} of the plain version (worst "
+          f"{max(errs.values()):.3g}); equal-logit rows give experts "
+          f"0..k-1 with gates 1/k, duplicated maxima the lowest index first;"
+          f" rows whose indices differ at a near-tie: {near_ties}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=inp.dev)
+    rows = []
+    for T, E, k in ROUTER_TIMED:
+        x = router_inputs(torch, inp, T, E, k)
+
+        def library(x=x, k=k):
+            p = torch.softmax(x, dim=-1)
+            v, i = torch.topk(p, k, dim=-1)
+            return v / torch.clamp(v.sum(-1, keepdim=True), min=1e-9), i, p
+
+        t = {"shape": f"T={T} E={E} k={k} f32 logits"
+                      + (" (decode: one row a slot)" if T == 8 else ""),
+             "max_abs_err": errs[(T, E, k)],
+             "tol": ROUTER_TOL,
+             "ms": _time_ms(torch, lambda: mr.moe_router(x, k), flush),
+             "plain_ms": _time_ms(torch, lambda: ref.moe_router(x, k),
+                                  flush),
+             "library_ms": _time_ms(torch, library, flush),
+             "library_note": "torch.softmax -> torch.topk -> normalise",
+             "bytes_ms": (2 * T * E * 4 + T * k * 8) / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": T * E * (4 + 2 * k) / F32_OPS_PER_S * 1e3}
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        rows.append(t)
+        print(f"[time moe_router] {t['shape']}: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, softmax + topk "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.3g} ms "
+              f"({t['bound_by']}), max abs err {t['max_abs_err']:.3g}")
+    report["timing"]["moe_router"] = rows
+    report["router_near_tie_rows"] = near_ties
+    return report
+
+
 def check_autograd_guard(torch):
     """Every kernel wrapper raises on the card when autograd would record
     the call (the kernels have no backward): a training caller gets an
@@ -1216,7 +1467,8 @@ def check_autograd_guard(torch):
                         (g.reshape(64, -1), inp.ints([3, 1, 3]))),
         "scatter_add_rows": (wrappers["scatter_add_rows"],
                              (g.reshape(64, -1), inp.ints([0, 2] * 32), 4)),
-        "adamw_update": (wrappers["adamw_update"], (g, g, g, g.abs(), g[:8]))})
+        "adamw_update": (wrappers["adamw_update"], (g, g, g, g.abs(), g[:8])),
+        "moe_router": (wrappers["moe_router"], (g.reshape(64, -1), 6))})
     for name, (fn, args) in calls.items():
         leaf = args[0] if args[0].is_floating_point() else args[1]
         leaf.requires_grad_()
@@ -1477,13 +1729,25 @@ def phase_training(torch):
                                                 impl="ref")
                     check(torch.equal(bk, bp), "onebit sync: kernel bits "
                           "differ from the plain bits")
+                    # the mean is +-scale: relative to the largest scale;
+                    # the residual x - scale * sign is rounded at |x|, so
+                    # scales a few ulps apart move it by an ulp of |x|:
+                    # each element relative to max(|x|, the largest scale)
                     scale = float(gp.abs().max())
                     errs = (float((gk - gp).abs().max()) / scale,
-                            float((rk - rp).abs().max()) / scale)
+                            float(((rk - rp).abs()
+                                   / torch.clamp(flat_x.abs(), min=scale))
+                                  .max()))
                     check(max(errs) <= SCALE_RTOL, f"onebit sync: kernel "
                           f"against plain {errs} relative > {SCALE_RTOL}")
-                    what = (f"bits equal, mean and residual within "
-                            f"{max(errs):.3g} of the largest value")
+                    x_ratio = float(flat_x.abs().max()) / scale
+                    r_gap = float((rk - rp).abs().max()) / scale
+                    what = (f"bits equal, mean within {errs[0]:.3g} of the "
+                            f"largest value, residual within {errs[1]:.3g} "
+                            "of max(|x|, the largest value) elementwise "
+                            f"(max |x| = {x_ratio:.3g} x the largest value; "
+                            f"residual gap {r_gap:.3g} of the largest "
+                            "value)")
                 else:
                     check(torch.equal(gk, gp) and torch.equal(rk, rp),
                           "topk sync: kernel and plain differ")
@@ -1548,14 +1812,26 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 2
-    report = {}
+    report = {"phase_s": {}}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        report["phase_s"][name] = time.perf_counter() - t0
+        print(f"[phase {name}] {report['phase_s'][name]:.1f} s")
+        return out
+
     try:
-        report["device"] = phase_device(torch)
-        report["kernels"] = phase_embed_kernels(
-            torch, phase_compress_kernels(torch, phase_kernels(torch)))
-        check_autograd_guard(torch)
-        report["serving"] = phase_serving(torch)
-        report["training"] = phase_training(torch)
+        report["device"] = timed("device", phase_device)
+        report["kernels"] = timed("kernels", phase_kernels)
+        for name, fn in (("compress_kernels", phase_compress_kernels),
+                         ("embed_kernels", phase_embed_kernels),
+                         ("router_kernel", phase_router_kernel)):
+            timed(name, fn, report["kernels"])
+        timed("autograd_guard", check_autograd_guard)
+        report["serving"] = timed("serving", phase_serving)
+        report["moe_serving"] = timed("moe_serving", phase_moe_serving)
+        report["training"] = timed("training", phase_training)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1575,7 +1851,8 @@ def main(argv=None) -> int:
                "topk_sparsify": ("training", "topk"),
                "gather_rows": ("training", "flat_embed"),
                "scatter_add_rows": ("training", "flat_embed"),
-               "adamw_update": ("training", "flat_fused_adamw")}
+               "adamw_update": ("training", "flat_fused_adamw"),
+               "moe_router": ("moe_serving", "moonlight_dense")}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape

@@ -26,9 +26,10 @@ from repro_torch.models import layers
 from repro_torch.models.transformer import check_ported
 
 # Leaves the JAX init keeps in float32 whatever the model dtype (norm
-# parameters, RecLLM's CF tables and fusion gate); every other floating
-# leaf is in the model dtype.
-_F32_LEAVES = ("scale", "bias", "cf_user", "cf_item", "fusion_gate")
+# parameters, the MoE router and the qk-norm scales, RecLLM's CF tables and
+# fusion gate); every other floating leaf is in the model dtype.
+_F32_LEAVES = ("scale", "bias", "router", "q_norm", "k_norm", "cf_user",
+               "cf_item", "fusion_gate")
 
 
 def _to_tensor(x: np.ndarray, key: str, device, dtype) -> torch.Tensor:
@@ -61,38 +62,58 @@ def params_from_numpy(tree: Dict, device=None,
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device=None) -> Dict:
     """Fresh parameters for ``cfg`` from ``generator``: normal(0, 1) draws
-    scaled by ``1/sqrt(in)`` for dense weights and by 0.02 for the
-    embedding, zeros for the RMSNorm scales, in the JAX init's order of
-    shapes.  Drawn in float32 on the generator's device, then cast to the
-    model dtype on ``device``."""
+    scaled by ``1/sqrt(in)`` for dense and expert weights (``d**-0.5`` for
+    the float32 MoE router) and by 0.02 for the embedding, zeros for the
+    RMSNorm and qk-norm scales, in the JAX init's order of shapes and key
+    names.  Drawn in float32 on the generator's device one layer at a time
+    (a whole stacked expert leaf in float32 would be a temporary of
+    gigabytes), then cast to the model dtype on ``device``."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     L, d = cfg.num_layers, cfg.d_model
 
-    def normal(*shape, scale):
+    def draw(shape, scale, out_dtype):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
-        return (x * scale).to(device=dev, dtype=dtype)
+        return (x * scale).to(device=dev, dtype=out_dtype)
+
+    def stacked(*shape, scale, out_dtype=dtype):
+        out = torch.empty((L,) + shape, dtype=out_dtype, device=dev)
+        for i in range(L):
+            out[i] = draw(shape, scale, out_dtype)
+        return out
 
     def dense(in_dim, out_dim):
-        return normal(L, in_dim, out_dim, scale=in_dim ** -0.5)
+        return stacked(in_dim, out_dim, scale=in_dim ** -0.5)
+
+    def expert(in_dim, out_dim):
+        return stacked(cfg.num_experts, in_dim, out_dim, scale=in_dim ** -0.5)
 
     def norm():
         return {k: v.expand(L, *v.shape).clone()
                 for k, v in layers.init_norm(cfg, device=dev).items()}
 
-    params = {"embed": normal(cfg.padded_vocab, d, scale=0.02),
+    params = {"embed": draw((cfg.padded_vocab, d), 0.02, dtype),
               "final_norm": layers.init_norm(cfg, device=dev)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal(d, cfg.padded_vocab, scale=d ** -0.5)
+        params["lm_head"] = draw((d, cfg.padded_vocab), d ** -0.5, dtype)
     attn = {"norm": norm(), "wq": dense(d, cfg.q_dim),
             "wk": dense(d, cfg.kv_dim), "wv": dense(d, cfg.kv_dim),
             "wo": dense(cfg.q_dim, d)}
-    if cfg.mlp_gated:
-        mlp = {"wi_gate": dense(d, cfg.d_ff), "wi_up": dense(d, cfg.d_ff),
-               "wo": dense(cfg.d_ff, d)}
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            attn[name] = torch.zeros((L, cfg.head_dim), dtype=torch.float32,
+                                     device=dev)
+    f = cfg.d_ff
+    mats = ((("wi_gate", d, f), ("wi_up", d, f)) if cfg.mlp_gated
+            else (("wi", d, f),)) + (("wo", f, d),)
+    ffn = {"norm": norm()}
+    if cfg.is_moe:
+        ffn["moe"] = {"router": stacked(d, cfg.num_experts, scale=d ** -0.5,
+                                        out_dtype=torch.float32),
+                      **{n: expert(i, o) for n, i, o in mats}}
     else:
-        mlp = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d)}
-    params["blocks"] = {"attn": attn, "ffn": {"norm": norm(), "mlp": mlp}}
+        ffn["mlp"] = {n: dense(i, o) for n, i, o in mats}
+    params["blocks"] = {"attn": attn, "ffn": ffn}
     return params

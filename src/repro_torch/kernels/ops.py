@@ -6,7 +6,8 @@ forces the plain version.  :func:`decode_attention` is the one decode entry
 point keyed off a :class:`~repro_torch.cache_layout.CacheLayout`, over the
 whole (dense | paged) x (16-bit | int8) x (ref | dense | flash) matrix.
 The gradient-compression entry points take the flat gradient, as JAX's do;
-so do the embedding gather / scatter-add and the fused AdamW update.
+so do the embedding gather / scatter-add and the fused AdamW update;
+:func:`moe_router` takes the (tokens, experts) router logits.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels import embedding_ops as _embed
 from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import grad_compress as _gc
+from repro_torch.kernels import moe_router as _router
 from repro_torch.kernels import topk_sparsify as _topk
 
 
@@ -132,6 +134,18 @@ def flash_decode_quant(q, k_q, k_s, v_q, v_s, lengths, *, softmax_scale=None,
     return flash_decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths,
                                         softmax_scale=softmax_scale,
                                         q_lens=q_lens)
+
+
+# -- MoE router ---------------------------------------------------------------
+
+def moe_router(logits, k: int, impl="kernel"):
+    """logits (T, E), E <= 128 -> (gates (T, k) f32, idx (T, k) int32,
+    probs (T, E) f32): softmax, top-k with the first-occurrence tie-break,
+    gates renormalized over the k."""
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.moe_router(logits, k)
+    return _router.moe_router(logits, k)
 
 
 # -- 1-bit compression -------------------------------------------------------

@@ -166,6 +166,32 @@ def decode_attention_paged_quant(q, k_q_pool, k_s_pool, v_q_pool, v_s_pool,
 
 
 # ---------------------------------------------------------------------------
+# MoE router: softmax + top-k (first-occurrence argmax tie-break)
+# ---------------------------------------------------------------------------
+
+def moe_router(logits, k: int):
+    """logits (T, E) -> (gates (T, k) f32, idx (T, k) int32, probs (T, E)
+    f32): k rounds of max-and-mask, each taking the lowest index among
+    equal maxima, then the gates renormalized over the k."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    E = probs.shape[-1]
+    iota = torch.arange(E, device=probs.device)
+    tmp = probs
+    gates, idxs = [], []
+    for _ in range(k):
+        m = torch.amax(tmp, dim=-1)
+        is_max = tmp == m[:, None]
+        idx = torch.amin(torch.where(is_max, iota, E), dim=-1)
+        gates.append(m)
+        idxs.append(idx)
+        tmp = torch.where(iota[None] == idx[:, None],
+                          torch.full_like(tmp, float("-inf")), tmp)
+    gates = torch.stack(gates, -1)
+    gates = gates / torch.clamp(torch.sum(gates, -1, keepdim=True), min=1e-9)
+    return gates, torch.stack(idxs, -1).to(torch.int32), probs
+
+
+# ---------------------------------------------------------------------------
 # 1-bit gradient compression (paper Eq. 10).  Layout: the flat gradient as
 # (8, M); bit j of packed[c] is the sign of g2d[j, c] (x >= 0 packs 1); one
 # float32 mean |g| scale per (8, block) tile of columns.

@@ -9,10 +9,15 @@ TTFT / per-token latency against SLO tiers:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --cache-layout paged --kv int8 --decode-impl flash
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch moonshot-v1-16b-a3b --moe-kernel --attn-impl flash \\
+      --decode-impl flash
 
 ``--attn-impl flash`` runs prefill attention through the CUDA flash-attention
 kernel (the JAX package's ``pallas`` value); ``--decode-impl flash`` runs
-every decode step through the CUDA flash-decode kernel of the cache layout.
+every decode step through the CUDA flash-decode kernel of the cache layout;
+``--moe-kernel`` routes every MoE FFN through the CUDA router kernel
+(``ModelCtx.use_kernels``, the JAX package's switch of the same name).
 The layout flags (``--kv``, ``--cache-layout``, ``--block-size``,
 ``--num-blocks``, ``--no-prefix-sharing``) fold into one
 :class:`~repro_torch.cache_layout.CacheLayout`, as in the JAX launcher.
@@ -60,7 +65,8 @@ def run_engine(args) -> int:
                         queue_capacity=args.queue_capacity,
                         refill=args.refill, sample_seed=args.seed,
                         layout=layout)
-    ctx = ModelCtx(attn_impl=args.attn_impl, attn_chunk=8)
+    ctx = ModelCtx(attn_impl=args.attn_impl, attn_chunk=8,
+                   use_kernels=args.moe_kernel)
 
     def mk_server():
         backend = make_backend(cfg, params, ctx, layout=layout,
@@ -75,7 +81,8 @@ def run_engine(args) -> int:
 
     title = (f"{cfg.name} {args.cache_layout} kv={args.kv} "
              f"attn={args.attn_impl} "
-             f"decode={args.decode_impl} refill={args.refill} "
+             f"decode={args.decode_impl} moe_kernel={args.moe_kernel} "
+             f"refill={args.refill} "
              f"slots={args.slots} {args.process}@{args.rate:g}req/s "
              f"on {device}")
     print(format_report(summary, title))
@@ -121,6 +128,10 @@ def main(argv=None) -> int:
                     help="decode attention: dense einsum over the padded "
                          "(or gathered paged) cache, or the CUDA "
                          "flash-decode kernel of the layout")
+    ap.add_argument("--moe-kernel", action="store_true",
+                    help="MoE archs: route every MoE FFN through the CUDA "
+                         "router kernel (softmax + top-k) instead of the "
+                         "plain softmax and sort")
     ap.add_argument("--refill", default="continuous",
                     choices=("continuous", "static"))
     ap.add_argument("--queue-capacity", type=int, default=64)

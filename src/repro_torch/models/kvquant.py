@@ -161,19 +161,26 @@ def quant_decode_step(cfg, params, cache: Dict, tokens, ctx=None):
             o = decode_attention_quant(q, k_q, k_s, v_q, v_s, pos + 1,
                                        impl=ctx.decode_impl)
         h = h + o.reshape(B, 1, cfg.q_dim) @ blk_p["attn"]["wo"]
-        h = h + tf.ffn_apply(cfg, blk_p["ffn"], h)
+        h = h + tf.ffn_apply(cfg, blk_p["ffn"], h, ctx)[0]
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return layers.lm_logits(cfg, params, h), dict(cache, len=pos + 1)
 
 
-def quant_prefill_kv(cfg, params, batch: Dict, ctx=None):
+def quant_prefill_kv(cfg, params, batch: Dict, ctx=None, true_len=None):
     """Full-sequence prefill forward returning quantized per-layer K/V:
     (logits (B, S, V), (k_q, k_s, v_q, v_s)) with values (L, B, S, Hk, D)
     and scales (L, B, S, Hk).  Prefill attention runs through
-    ``ctx.attn_impl`` (the flash-attention kernel under ``"flash"``)."""
+    ``ctx.attn_impl`` (the flash-attention kernel under ``"flash"``).
+
+    ``true_len`` masks right-padding out of MoE routing, as the 16-bit
+    prefill does (:func:`transformer.forward_hidden`).  The JAX package's
+    ``quant_prefill_kv`` takes no ``true_len``, so there pad tokens route
+    and can take a real token's expert place when the capacity is tight;
+    here they never do (``ROADMAP.md``, section 3)."""
     if ctx is None:
         ctx = tf.ModelCtx()
-    logits, _, (k, v) = tf.forward(cfg, params, batch, ctx, collect_kv=True)
+    logits, _, (k, v) = tf.forward(cfg, params, batch, ctx, collect_kv=True,
+                                   true_len=true_len)
     k_q, k_s = quantize_kv(k)
     v_q, v_s = quantize_kv(v)
     return logits, (k_q, k_s, v_q, v_s)

@@ -46,6 +46,13 @@ def apply_norm(cfg: ArchConfig, params, x, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def rms_norm_simple(x, scale, eps: float = 1e-6):
+    """Standalone RMSNorm used for qk-norm (scale is multiplicative 1+s)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (split-half, not interleaved)
 # ---------------------------------------------------------------------------

@@ -1,0 +1,123 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity dispatch (port of
+``repro/models/moe.py``, paper section III.A.c).
+
+Dispatch is the JAX package's group-wise one-hot einsum formulation
+(Mesh-TF / Switch lineage): tokens are split into (batch x seq-subchunk)
+groups of ``G = gcd(group_size, S)``; each (token, slot) takes a place in
+its expert's queue by a slot-major cumsum, and places past the capacity C
+are dropped.  The one-hot ``dispatch`` / ``combine`` tensors keep the
+reference's order of sums, so the port's outputs follow JAX's.  The
+expert products are plain batched matrix products (``torch.einsum``), as
+the JAX package leaves them to XLA; with 16-bit weights each product is
+rounded to the model dtype before the float32 activation, where JAX keeps
+it in float32 (``preferred_element_type``).
+
+Aux outputs: the Switch load-balance loss, the router z-loss and the
+per-expert load counts.  The serving path is ported; MoE training with
+``core/load_balance.rebalance_experts`` comes later (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.config import ArchConfig
+from repro_torch.models import layers
+
+
+def router_topk(logits: torch.Tensor, k: int, use_kernel: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., E) logits -> (gates (..., k), idx (..., k), probs (..., E)).
+
+    ``use_kernel`` routes through :func:`repro_torch.kernels.ops.moe_router`
+    (the CUDA kernel on the card, its plain version on the CPU).  Otherwise
+    a stable descending sort gives ``lax.top_k``'s order: equal probs keep
+    the lower expert index first (``torch.topk`` promises no tie order on
+    CUDA)."""
+    if use_kernel:
+        from repro_torch.kernels import ops
+        shp = logits.shape
+        g2, i2, p2 = ops.moe_router(logits.reshape(-1, shp[-1]), k)
+        return (g2.reshape(shp[:-1] + (k,)), i2.reshape(shp[:-1] + (k,)),
+                p2.reshape(shp))
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[..., :k], order[..., :k]
+    gates = gates / torch.clamp(torch.sum(gates, -1, keepdim=True), min=1e-9)
+    return gates, idx, probs
+
+
+def _capacity(group: int, k: int, E: int, factor: float) -> int:
+    c = int(group * k / E * factor)
+    return max(8, -(-c // 8) * 8)   # round up to 8
+
+
+def _one_hot(idx, n: int) -> torch.Tensor:
+    """float32 one-hot over a new last dim of size n (any integer dtype)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe_ffn(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
+            capacity_factor: float = 1.25, group_size: int = 1024,
+            use_kernel: bool = False, live=None):
+    """x: (B, S, d) -> (out, aux) where aux has losses + expert loads.
+
+    ``live`` (optional (B, S) 0/1 mask -- serving prefill): masked-out
+    positions are dropped from routing entirely -- they occupy no expert
+    capacity (pad garbage can never evict a real token from its expert),
+    contribute nothing to dispatch/combine or ``expert_load``, and get
+    zero FFN output."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    G = min(group_size, S)
+    if S % G:
+        G = math.gcd(G, S)
+    g = B * (S // G)
+    C = _capacity(G, k, E, capacity_factor)
+    xg = x.reshape(g, G, d)
+
+    logits = xg.float() @ params["router"]                       # (g, G, E)
+    gates, idx, probs = router_topk(logits, k, use_kernel)       # (g, G, .)
+    onehot = _one_hot(idx, E)                                    # (g,G,k,E)
+    if live is not None:
+        # dead (pad) tokens leave the expert queues before positions are
+        # assigned: real tokens' capacity slots are pad-independent
+        onehot = onehot * live.reshape(g, G).float()[..., None, None]
+    # position of each (token, slot) within its expert queue, per group
+    flat = onehot.transpose(1, 2).reshape(g, k * G, E)           # slot-major
+    pos = torch.cumsum(flat, dim=1) - flat                       # (g,kG,E)
+    pos = pos.reshape(g, k, G, E).transpose(1, 2)                # (g,G,k,E)
+    pos_in_e = torch.sum(pos * onehot, dim=-1)                   # (g,G,k)
+    keep = pos_in_e < C                                  # capacity drop
+    pos_in_e = torch.where(keep, pos_in_e, 0).to(torch.int64)
+    gates_k = gates * keep
+    poshot = _one_hot(pos_in_e, C) * keep[..., None]             # (g,G,k,C)
+    dt = x.dtype
+    # dispatch/combine without materializing the k-dim outer product
+    dispatch = torch.einsum("gtke,gtkc->gtec", onehot, poshot).to(dt)
+    combine = torch.einsum("gtke,gtkc->gtec", onehot * gates_k[..., None],
+                           poshot).to(dt)
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch, xg)     # (g,E,C,d)
+    act = layers.activation(cfg.act)
+    if cfg.mlp_gated:
+        h = act(torch.einsum("gecd,edf->gecf", expert_in,
+                             params["wi_gate"]).float()) \
+            * torch.einsum("gecd,edf->gecf", expert_in,
+                           params["wi_up"]).float()
+        h = h.to(dt)
+    else:
+        h = act(torch.einsum("gecd,edf->gecf", expert_in,
+                             params["wi"]).float()).to(dt)
+    expert_out = torch.einsum("gecf,efd->gecd", h, params["wo"])
+    out = torch.einsum("gtec,gecd->gtd", combine, expert_out)
+
+    # aux statistics (Switch LB loss over all tokens)
+    frac_tokens = torch.mean(onehot[..., 0, :], dim=(0, 1))      # top-1 frac
+    mean_prob = torch.mean(probs, dim=(0, 1))
+    lb_loss = E * torch.sum(frac_tokens * mean_prob)
+    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    load = torch.sum(onehot, dim=(0, 1, 2))                      # (E,)
+    aux = {"lb_loss": lb_loss, "z_loss": z_loss, "expert_load": load}
+    return out.to(dt).reshape(B, S, d), aux

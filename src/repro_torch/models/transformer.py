@@ -17,10 +17,10 @@ D)`` pools they were given, and return the same tensors.  Only
 backward is PyTorch's autograd through the ``chunked`` (or ``naive``)
 attention path, since the CUDA attention kernels have no backward yet.
 
-This slice covers the uniform family (RecLLM) with dense and paged caches:
-MoE layers, M-RoPE, learned positions, qk-norm, the other families and
-chunked prefill raise ``NotImplementedError``; they are queued in
-``ROADMAP.md``.
+This slice covers the uniform family -- RecLLM, and the MoE archs with
+qk-norm (:mod:`repro_torch.models.moe`) -- with dense and paged caches:
+M-RoPE, learned positions, the other families and chunked prefill raise
+``NotImplementedError``; they are queued in ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.cache_layout import CacheLayout
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +44,9 @@ class ModelCtx:
     attn_impl: str = "chunked"       # naive | chunked | flash (CUDA kernel)
     attn_chunk: int = 1024
     decode_impl: str = "dense"       # dense | flash (CUDA flash-decode)
+    use_kernels: bool = False        # MoE router through the CUDA kernel
+    moe_group: int = 256
+    moe_capacity_factor: float = 1.25
 
 
 def family(cfg: ArchConfig) -> str:
@@ -63,14 +66,12 @@ def check_ported(cfg: ArchConfig) -> None:
     fam = family(cfg)
     missing = [what for what, bad in (
         (f"family {fam!r}", fam != "uniform"),
-        ("MoE layers", cfg.is_moe),
         (f"pos_type {cfg.pos_type!r}", cfg.pos_type not in ("rope", "none")),
-        ("qk_norm", cfg.qk_norm),
     ) if bad]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (this slice "
-            "serves the dense uniform family; see ROADMAP.md)")
+            "serves the uniform family; see ROADMAP.md)")
 
 
 def _layer(blocks: Dict, i: int) -> Dict:
@@ -92,6 +93,9 @@ def _qkv(cfg: ArchConfig, p: Dict, h, positions):
     q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm and "q_norm" in p:
+        q = layers.rms_norm_simple(q, p["q_norm"])
+        k = layers.rms_norm_simple(k, p["k_norm"])
     q = layers.position_embedding(cfg, q, positions)
     k = layers.position_embedding(cfg, k, positions)
     return q, k, v
@@ -165,51 +169,80 @@ def attn_decode_paged(cfg: ArchConfig, p: Dict, x, position, ctx: ModelCtx,
     return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
 
 
-def ffn_apply(cfg: ArchConfig, p: Dict, x):
+def ffn_apply(cfg: ArchConfig, p: Dict, x, ctx: ModelCtx, live=None):
+    """FFN residual branch: (out, aux).  ``live`` (optional (B, S) mask,
+    serving prefill): positions masked out are excluded from MoE
+    routing/capacity -- see :func:`moe.moe_ffn`.  Dense MLPs are per-token,
+    so the mask is irrelevant there (aux None)."""
     h = layers.apply_norm(cfg, p["norm"], x)
-    return layers.apply_mlp(cfg, p["mlp"], h)
+    if "moe" in p:
+        return moe.moe_ffn(cfg, p["moe"], h, group_size=ctx.moe_group,
+                           capacity_factor=ctx.moe_capacity_factor,
+                           use_kernel=ctx.use_kernels, live=live)
+    return layers.apply_mlp(cfg, p["mlp"], h), None
+
+
+def zero_aux(cfg: ArchConfig, device) -> Dict:
+    a = {"lb_loss": torch.zeros((), dtype=torch.float32, device=device),
+         "z_loss": torch.zeros((), dtype=torch.float32, device=device)}
+    if cfg.is_moe:
+        a["expert_load"] = torch.zeros((cfg.num_experts,),
+                                       dtype=torch.float32, device=device)
+    return a
+
+
+def _sum_aux(a, b):
+    return {k: a[k] + b[k] for k in a}
 
 
 # ---------------------------------------------------------------------------
 # Public API: forward / cache / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _zero_aux(device) -> Dict:
-    z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"lb_loss": z, "z_loss": z.clone()}
-
-
 def forward_hidden(cfg: ArchConfig, params: Dict, batch: Dict,
-                   ctx: ModelCtx = ModelCtx(), collect_kv: bool = False):
+                   ctx: ModelCtx = ModelCtx(), collect_kv: bool = False,
+                   true_len=None):
     """Full-sequence forward up to the final norm: (hidden, aux, kvs).
 
-    ``kvs`` is ``(k, v)`` stacked ``(L, B, S, Hk, D)`` when ``collect_kv``.
-    The JAX package's ``true_len`` argument only steers MoE routing; the
-    dense layers here are causal or per-token, so right-padding never
-    reaches a real position."""
+    ``kvs`` is ``(k, v)`` stacked ``(L, B, S, Hk, D)`` when ``collect_kv``;
+    ``aux`` sums the MoE layers' losses and expert loads.  ``true_len``
+    (serving prefill): positions >= true_len are right-padding -- they are
+    masked out of MoE routing so pad garbage never consumes expert
+    capacity (every other sublayer is causal or per-token, so pads cannot
+    touch real positions there)."""
     check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = layers.embed_tokens(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    live = None
+    if true_len is not None:
+        live = (torch.arange(S, device=tokens.device)
+                < true_len)[None].expand(B, S)
+    aux = zero_aux(cfg, h.device)
     ks, vs = [], []
     for blk in _layers(params, cfg):
         a_out, kv = attn_apply(cfg, blk["attn"], h, positions, ctx,
                                return_kv=collect_kv)
         h = h + a_out
-        h = h + ffn_apply(cfg, blk["ffn"], h)
+        f_out, f_aux = ffn_apply(cfg, blk["ffn"], h, ctx, live=live)
+        h = h + f_out
+        if f_aux is not None:            # a dense MLP adds nothing
+            aux = _sum_aux(aux, f_aux)
         if collect_kv:
             ks.append(kv[0])
             vs.append(kv[1])
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     hidden = layers.apply_norm(cfg, params["final_norm"], h)
-    return hidden, _zero_aux(h.device), kvs
+    return hidden, aux, kvs
 
 
 def forward(cfg: ArchConfig, params: Dict, batch: Dict,
-            ctx: ModelCtx = ModelCtx(), collect_kv: bool = False):
+            ctx: ModelCtx = ModelCtx(), collect_kv: bool = False,
+            true_len=None):
     """Full-sequence forward.  Returns (logits, aux, kvs)."""
-    h, aux, kvs = forward_hidden(cfg, params, batch, ctx, collect_kv)
+    h, aux, kvs = forward_hidden(cfg, params, batch, ctx, collect_kv,
+                                 true_len=true_len)
     return layers.lm_logits(cfg, params, h), aux, kvs
 
 
@@ -318,7 +351,7 @@ def scatter_prompt_blocks(cache: Dict, name: str, rows, slot: int) -> None:
 def _uniform_prefill_slot(cfg, params, cache, tokens, true_len: int,
                           slot: int, ctx):
     logits, _, (k, v) = forward(cfg, params, {"tokens": tokens}, ctx,
-                                collect_kv=True)
+                                collect_kv=True, true_len=true_len)
     S_p = tokens.shape[1]
     cache["k"][:, slot, :S_p] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot, :S_p] = v[:, 0].to(cache["v"].dtype)
@@ -333,7 +366,7 @@ def _uniform_prefill_slot_paged(cfg, params, cache, tokens, true_len: int,
     rows inside owned blocks are dead by the slot length and are
     overwritten by decode appends before the length reaches them."""
     logits, _, (k, v) = forward(cfg, params, {"tokens": tokens}, ctx,
-                                collect_kv=True)
+                                collect_kv=True, true_len=true_len)
     scatter_prompt_blocks(cache, "k", k[:, 0], slot)
     scatter_prompt_blocks(cache, "v", v[:, 0], slot)
     cache["len"][slot] = true_len
@@ -364,7 +397,7 @@ def _uniform_decode(cfg, params, h, position, ctx, cache):
     for i, blk in enumerate(_layers(params, cfg)):
         h = h + attn_decode(cfg, blk["attn"], h, position, ctx,
                             cache["k"][i], cache["v"][i], cache["len"])
-        h = h + ffn_apply(cfg, blk["ffn"], h)
+        h = h + ffn_apply(cfg, blk["ffn"], h, ctx)[0]
     # every slot advances, free ones included, as in the JAX package
     return h, {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}
 
@@ -375,7 +408,7 @@ def _uniform_decode_paged(cfg, params, h, position, ctx, cache):
         h = h + attn_decode_paged(cfg, blk["attn"], h, position, ctx,
                                   cache["k"][i], cache["v"][i], read_t,
                                   write_t, cache["len"])
-        h = h + ffn_apply(cfg, blk["ffn"], h)
+        h = h + ffn_apply(cfg, blk["ffn"], h, ctx)[0]
     return h, dict(cache, len=cache["len"] + 1)
 
 

@@ -197,7 +197,7 @@ class Int8KVBackend(SlotBackend):
 
     def _prefill_impl(self, params, cache, tokens, true_len, slot):
         logits, quant = kvquant.quant_prefill_kv(
-            self.cfg, params, {"tokens": tokens}, self.ctx)
+            self.cfg, params, {"tokens": tokens}, self.ctx, true_len)
         S_p = tokens.shape[1]
         for name, upd in zip(("k_q", "k_s", "v_q", "v_s"), quant):
             cache[name][:, slot, :S_p] = upd[:, 0]
@@ -283,7 +283,7 @@ class PagedInt8Backend(_PagedBackendMixin, SlotBackend):
 
     def _prefill_impl(self, params, cache, tokens, true_len, slot):
         logits, quant = kvquant.quant_prefill_kv(
-            self.cfg, params, {"tokens": tokens}, self.ctx)
+            self.cfg, params, {"tokens": tokens}, self.ctx, true_len)
         for name, upd in zip(self._pool_leaves, quant):
             tf.scatter_prompt_blocks(cache, name, upd[:, 0], slot)
         cache["len"][slot] = true_len

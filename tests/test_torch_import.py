@@ -44,7 +44,7 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-# every module of the serving, training and sparse-embedding slices, so
+# every module of the serving, training, sparse-embedding and MoE slices, so
 # the walks below cannot go vacuous
 SLICE_MODULES = (
     "cache_layout.py", "convert.py", "kernels/_build.py",
@@ -59,7 +59,8 @@ SLICE_MODULES = (
     "core/hierarchical.py", "core/compression.py", "runtime/trainer.py",
     "launch/train_recsys.py", "kernels/embedding_ops.py",
     "kernels/fused_adamw.py", "embeddings/update.py",
-    "embeddings/__init__.py",
+    "embeddings/__init__.py", "kernels/moe_router.py", "models/moe.py",
+    "configs/moonshot_v1_16b_a3b.py", "configs/qwen3_moe_30b_a3b.py",
 )
 
 

@@ -155,10 +155,10 @@ def test_prefill_and_decode_match(model, which):
 
 
 def test_unported_configs_raise():
-    moe = dataclasses.replace(reduced(get_arch(ARCH)), num_experts=4,
-                              experts_per_token=2)
+    learned = dataclasses.replace(reduced(get_arch(ARCH)),
+                                  pos_type="learned")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init_slots(moe, 2, 16, device="cpu")
+        ttf.init_slots(learned, 2, 16, device="cpu")
     ring = dataclasses.replace(reduced(get_arch(ARCH)),
                                local_global_pattern=2, sliding_window=8)
     with pytest.raises(NotImplementedError, match="gemma"):

@@ -1,0 +1,346 @@
+"""The port's MoE slice against the JAX package: the router (Pallas kernel
+in interpret mode), ``router_topk``, ``moe_ffn``, the whole forward of
+the reduced MoE archs, and the serving engine under every cache layout.
+
+The same numpy inputs go through both packages; params are the JAX init
+converted into the port.  Everything runs at float32 on the CPU, where the
+router wrapper runs its plain version.  Tolerances: router probs and gates
+atol 1e-6 + rtol 1e-6 and equal expert indices (the plain softmax and the
+TPU kernel's differ by rounding only); ``moe_ffn`` out 1e-5, lb/z losses
+1e-6, expert loads equal; logits 1e-4 (summation order over the stack);
+greedy streams and scheduler records equal.
+
+The int8 layouts run at ``moe_capacity_factor=8.0``: the JAX package's
+fused int8 prefill (``kvquant.quant_prefill_kv``) routes pad tokens, so at
+a tight capacity its streams depend on the padding; the port masks them
+(``test_moe_prefill_independent_of_pad_contents``).
+"""
+import dataclasses
+import math
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.cache_layout import CacheLayout as JLayout
+from repro.config import get_arch as jget_arch
+from repro.config import reduced as jreduced
+from repro.kernels import ops as jops
+from repro.models import moe as jmoe
+from repro.models import transformer as jtf
+from repro.serving import engine as jeng
+from repro.serving import traffic as jtraffic
+from repro_torch import convert
+from repro_torch.cache_layout import CacheLayout
+from repro_torch.config import get_arch, reduced
+from repro_torch.kernels import moe_router as router_kernel
+from repro_torch.kernels import ops, ref
+from repro_torch.models import moe as tmoe
+from repro_torch.models import transformer as ttf
+from repro_torch.serving import engine as teng
+from repro_torch.serving import traffic as ttraffic
+
+torch.set_num_threads(2)
+
+ARCHS = ("moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b")
+ROUTER_TOL = dict(atol=1e-6, rtol=1e-6)
+TRAFFIC = dict(n_requests=6, rate=80.0, prompt_max=14, new_tokens_max=5,
+               vocab_size=256, seed=3)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfgs(arch, **kw):
+    j = dataclasses.replace(jreduced(jget_arch(arch)), dtype="float32", **kw)
+    t = dataclasses.replace(reduced(get_arch(arch)), dtype="float32", **kw)
+    return j, t
+
+
+def _convert(jparams):
+    return convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    jcfg, tcfg = _cfgs(request.param)
+    jparams = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jparams, tcfg, _convert(jparams)
+
+
+def _logits(T, E, seed=0):
+    return np.random.default_rng(seed).standard_normal((T, E)).astype(
+        np.float32)
+
+
+def _tied(E, k):
+    """Rows of equal logits and of duplicated maxima."""
+    rows = np.zeros((4, E), np.float32)                # all equal
+    rows[1] = np.linspace(-1, 1, E)
+    rows[1, [3, E - 2, E // 2]] = 2.0                  # three equal maxima
+    rows[2, ::2] = 1.5                                 # half the row ties
+    rows[3] = -3.0
+    rows[3, [E - 1, 1]] = 0.5                          # ties at both ends
+    return rows
+
+
+def _check_router(got, want):
+    (tg, ti, tp), (jg, ji, jp) = got, want
+    assert ti.dtype == torch.int32
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **ROUTER_TOL)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **ROUTER_TOL)
+
+
+# -- the router --------------------------------------------------------------
+
+@pytest.mark.parametrize("T,E,k", [(64, 8, 2), (128, 64, 6), (96, 128, 8),
+                                   (1100, 8, 2)])
+def test_router_matches_pallas(T, E, k):
+    """The plain version and the wrapper on CPU tensors against the Pallas
+    kernel (interpret mode); 1100 rows run past one 1024-row TPU block."""
+    x = np.concatenate([_logits(T, E), _tied(E, k)])
+    want = jops.moe_router(jnp.asarray(x), k)
+    for fn in (ref.moe_router, ops.moe_router, router_kernel.moe_router):
+        _check_router(fn(torch.from_numpy(x), k), want)
+
+
+@pytest.mark.parametrize("E,k", [(8, 2), (64, 6), (128, 8)])
+def test_router_tie_break_is_first_occurrence(E, k):
+    gates, idx, _ = ops.moe_router(torch.from_numpy(_tied(E, k)), k)
+    assert idx[0].tolist() == list(range(k))
+    np.testing.assert_allclose(gates[0].numpy(), np.full(k, 1.0 / k),
+                               **ROUTER_TOL)
+    assert idx[1].tolist()[:3] == [3, E // 2, E - 2][:k]
+    assert idx[2].tolist() == list(range(0, 2 * k, 2))
+    assert idx[3, :2].tolist() == [1, E - 1]
+
+
+def test_router_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="E=129"):
+        ops.moe_router(torch.zeros(4, 129), 2)
+    with pytest.raises(ValueError, match="k=9"):
+        ops.moe_router(torch.zeros(4, 8), 9)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_router_topk_matches_jax(use_kernel):
+    """Batched leading dims kept; ties (equal logits) in lax.top_k's
+    lower-index-first order on both branches."""
+    x = np.concatenate([_logits(30, 16, seed=2), _tied(16, 4),
+                        np.zeros((2, 16), np.float32)]).reshape(3, 12, 16)
+    jg, ji, jp = jmoe.router_topk(jnp.asarray(x), 4, use_kernel)
+    tg, ti, tp = tmoe.router_topk(torch.from_numpy(x), 4, use_kernel)
+    assert tg.shape == (3, 12, 4) and tp.shape == x.shape
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), **ROUTER_TOL)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **ROUTER_TOL)
+
+
+# -- the MoE FFN -------------------------------------------------------------
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("capacity", [1.25, 0.5])
+@pytest.mark.parametrize("arch,E,k", [("moonshot-v1-16b-a3b", 8, 2),
+                                      ("qwen3-moe-30b-a3b", 16, 4)])
+def test_moe_ffn_matches_jax(arch, E, k, capacity, masked, use_kernel):
+    """Two groups of 64 tokens (B=2, S=64, group 64); capacity 0.5 drops
+    (some expert gets more than C of a group's tokens); the live mask takes
+    the last 21 positions of row 0 and 2 of row 1 out of routing."""
+    jcfg, tcfg = _cfgs(arch, num_experts=E, experts_per_token=k)
+    jp = jmoe.init_moe(jax.random.PRNGKey(1), jcfg)
+    tp = _convert(jp)
+    x = np.random.default_rng(4).standard_normal((2, 64, 64)).astype(
+        np.float32)
+    live = None
+    if masked:
+        live = np.ones((2, 64), bool)
+        live[0, 43:] = False
+        live[1, 62:] = False
+    kw = dict(capacity_factor=capacity, group_size=64, use_kernel=use_kernel)
+    jout, jaux = jmoe.moe_ffn(jcfg, jp, jnp.asarray(x), **kw,
+                              live=None if live is None else jnp.asarray(live))
+    tout, taux = tmoe.moe_ffn(tcfg, tp, torch.from_numpy(x), **kw,
+                              live=None if live is None
+                              else torch.from_numpy(live))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-5,
+                               rtol=0)
+    for name in ("lb_loss", "z_loss"):
+        np.testing.assert_allclose(float(taux[name]), float(jaux[name]),
+                                   atol=1e-6, rtol=1e-6)
+    np.testing.assert_array_equal(taux["expert_load"].numpy(),
+                                  np.asarray(jaux["expert_load"]))
+    if capacity < 1:
+        C = tmoe._capacity(64, k, E, capacity)
+        assert float(taux["expert_load"].max()) > 2 * C
+    if masked:
+        dead = ~live
+        assert np.abs(tout.numpy()[dead]).max() == 0.0
+        assert float(taux["expert_load"].sum()) == k * live.sum()
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_forward_matches_jax(model, use_kernels):
+    jcfg, jparams, tcfg, tparams = model
+    toks = np.random.default_rng(6).integers(3, jcfg.vocab_size, (2, 24))
+    jctx = jtf.ModelCtx(attn_chunk=8, use_kernels=use_kernels)
+    tctx = ttf.ModelCtx(attn_chunk=8, use_kernels=use_kernels)
+    jl, jaux, _ = jtf.forward(jcfg, jparams,
+                              {"tokens": jnp.asarray(toks, jnp.int32)}, jctx)
+    tl, taux, _ = ttf.forward(tcfg, tparams,
+                              {"tokens": torch.from_numpy(toks)}, tctx)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=0)
+    assert taux.keys() == jaux.keys()
+    for name in ("lb_loss", "z_loss"):
+        np.testing.assert_allclose(float(taux[name]), float(jaux[name]),
+                                   atol=1e-5, rtol=1e-6)
+    np.testing.assert_array_equal(taux["expert_load"].numpy(),
+                                  np.asarray(jaux["expert_load"]))
+
+
+# -- serving -----------------------------------------------------------------
+
+def _same(a, b):
+    """Equality that takes NaN == NaN (empty-sample percentiles)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, float) and math.isnan(a):
+        return isinstance(b, float) and math.isnan(b)
+    return a == b
+
+
+def _clock(traffic_mod):
+    return traffic_mod.Clock(fixed_decode_s=0.01, fixed_prefill_s=0.02)
+
+
+@pytest.mark.parametrize("layout", [
+    dict(), dict(kind="paged", block_size=8), dict(kv_bits=8),
+    dict(kind="paged", kv_bits=8, block_size=8),
+], ids=["dense", "paged", "int8", "paged_int8"])
+def test_engine_matches_jax(model, layout):
+    """Greedy streams, every RequestRecord and the whole summary equal the
+    JAX engine's under a pinned clock; the int8 layouts at capacity 8.0 (no
+    token drops, so the reference's pad routing cannot show)."""
+    jcfg, jparams, tcfg, tparams = model
+    cap = 8.0 if layout.get("kv_bits") == 8 else 1.25
+    ecfg = dict(n_slots=3, max_len=32)
+    jout, jrecs, jsum = jeng.serve(
+        jcfg, jparams, jtraffic.generate(jtraffic.TrafficConfig(**TRAFFIC)),
+        jeng.EngineConfig(layout=JLayout(**layout), **ecfg),
+        jtf.ModelCtx(attn_chunk=8, moe_capacity_factor=cap),
+        clock=_clock(jtraffic))
+    tout, trecs, tsum = teng.serve(
+        tcfg, tparams, ttraffic.generate(ttraffic.TrafficConfig(**TRAFFIC)),
+        teng.EngineConfig(layout=CacheLayout(**layout), **ecfg),
+        ttf.ModelCtx(attn_chunk=8, moe_capacity_factor=cap, use_kernels=True),
+        clock=_clock(ttraffic), device="cpu")
+    assert tout == jout
+    assert [dataclasses.asdict(r) for r in trecs] == \
+        [dataclasses.asdict(r) for r in jrecs]
+    assert _same(tsum, jsum), (tsum, jsum)
+
+
+@pytest.mark.parametrize("layout", [
+    dict(), dict(kind="paged", block_size=8), dict(kv_bits=8),
+    dict(kind="paged", kv_bits=8, block_size=8),
+], ids=["dense", "paged", "int8", "paged_int8"])
+def test_moe_prefill_independent_of_pad_contents(model, layout):
+    """Port of the JAX test of the same name to every cache layout of the
+    port: pad positions are masked out of MoE routing, so at a tight
+    capacity (0.5) and a wide pad region the prefill logits and the next
+    three greedy tokens are identical whatever the padding holds (the JAX
+    package's int8 layouts fail this: ``ROADMAP.md``, section 3)."""
+    _, _, tcfg, tparams = model
+    ctx = ttf.ModelCtx(attn_chunk=8, moe_capacity_factor=0.5)
+    backend = teng.make_backend(tcfg, tparams, ctx,
+                                layout=CacheLayout(**layout), device="cpu")
+    rng = np.random.default_rng(3)
+    plen, s_pad = 9, 32
+    prompt = rng.integers(3, tcfg.vocab_size, plen)
+    outs = []
+    for fill in (0, 1):                      # pad with zeros vs garbage
+        padded = np.zeros((1, s_pad), np.int64)
+        if fill:
+            padded[0] = rng.integers(3, tcfg.vocab_size, s_pad)
+        padded[0, :plen] = prompt
+        cache = backend.init_slots(1, 32)
+        if layout.get("kind") == "paged":
+            tbl = np.arange(1, 5, dtype=np.int32)[None]
+            cache = backend.set_tables(cache, tbl, tbl)
+        lg, cache = backend.prefill(cache, padded, plen, 0)
+        toks = [int(torch.argmax(lg))]
+        for _ in range(3):
+            lg2, cache = backend.decode(cache, torch.tensor([[toks[-1]]]))
+            toks.append(int(torch.argmax(lg2[0, 0])))
+        outs.append((lg.numpy(), toks))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1]
+
+
+# -- conversion, autograd, launcher -------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_matches_the_jax_tree(arch):
+    """Same keys, shapes and dtypes as ``jax.eval_shape(tf.init_params)``
+    in bf16; conversion of a bf16 JAX tree keeps the router and qk-norm
+    scales in float32."""
+    jcfg = jreduced(jget_arch(arch))
+    tcfg = reduced(get_arch(arch))
+    want = jax.eval_shape(lambda: jtf.init_params(jax.random.PRNGKey(0),
+                                                  jcfg))
+    got = convert.init_params(tcfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    flat_w = {jax.tree_util.keystr(p): v for p, v in
+              jax.tree_util.tree_flatten_with_path(want)[0]}
+    flat_g = {jax.tree_util.keystr(p): v for p, v in
+              jax.tree_util.tree_flatten_with_path(got)[0]}
+    assert flat_g.keys() == flat_w.keys()
+    for key, w in flat_w.items():
+        g = flat_g[key]
+        assert tuple(g.shape) == w.shape, key
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype), key
+    tparams = convert.params_from_numpy(
+        jax.tree.map(np.asarray, jtf.init_params(jax.random.PRNGKey(0),
+                                                 jcfg)),
+        device="cpu", dtype=torch.bfloat16)
+    blocks = tparams["blocks"]
+    assert blocks["ffn"]["moe"]["router"].dtype == torch.float32
+    assert blocks["ffn"]["moe"]["wi_gate"].dtype == torch.bfloat16
+    if jcfg.qk_norm:
+        assert blocks["attn"]["q_norm"].dtype == torch.float32
+        assert blocks["attn"]["k_norm"].dtype == torch.float32
+
+
+def test_router_wrapper_refuses_autograd():
+    x = torch.from_numpy(_logits(8, 16)).requires_grad_()
+    before = router_kernel.moe_router.launches
+    with pytest.raises(RuntimeError, match="moe_router: .*no backward"):
+        router_kernel.moe_router(x, 2)
+    with torch.no_grad():
+        router_kernel.moe_router(x, 2)
+    assert router_kernel.moe_router.launches == before
+
+
+def test_launcher_serves_a_reduced_moe_arch_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "moonshot-v1-16b-a3b", "--reduced", "--device", "cpu",
+         "--moe-kernel", "--requests", "4", "--no-warmup"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "moe_kernel=True" in out.stdout
+    assert "4/4 requests" in out.stdout
+
+
+def test_capacity_matches_jax():
+    for group, k, E, f in ((16, 2, 8, 1.25), (32, 6, 64, 1.25),
+                           (256, 8, 128, 0.5), (1, 6, 64, 1.25)):
+        assert tmoe._capacity(group, k, E, f) == \
+            jmoe._capacity(group, k, E, f)
