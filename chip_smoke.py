@@ -37,8 +37,16 @@ failing the run with a non-zero exit when its check fails:
    logits (experts 0..k-1, gates 1/k) and a row of duplicated maxima (the
    lowest index first): probs and gates within 1e-6, indices equal except
    on rows whose top k + 1 probs hold a near-tie (counted); timed beside
-   ``torch.softmax`` -> ``torch.topk`` -> normalise.  Every kernel wrapper
-   must raise on inputs that require grad;
+   ``torch.softmax`` -> ``torch.topk`` -> normalise.  The chunked WKV6
+   kernel at the JAX kernel test's shapes, rwkv6-1.6b's serving prefill
+   (1, 32, 48, 64) and a long prompt (1, 32, 4096, 64), each with drawn
+   decays and with w = 1e-6: output and final state within 2e-4 of the
+   largest value of the plain chunked recurrence and of the sequential
+   scan; pads frozen with w = 1, k = 0 give the unpadded prompt's state;
+   timed at the two timed shapes beside both plain versions, whose
+   hundreds to thousands of launches are timed as the profiler's sum of
+   their kernels' device time (no PyTorch call computes it).  Every kernel wrapper must raise on inputs that
+   require grad;
 3. serving RecLLM-base at full width in bf16 (random weights from a seeded
    generator) through ``repro_torch.serving``: 16 Poisson requests on 8
    slots of 512 positions with both attention kernels on, under the dense
@@ -70,7 +78,18 @@ failing the run with a non-zero exit when its check fails:
    greedy streams are compared (the first divergence printed), and their
    first prefill row and decode step logits must be finite and within
    2e-2 of the largest logit;
-5. training RecLLM-base at full width in float32 (178.0M parameters, the
+5. serving rwkv6-1.6b at full width in bf16 (24 layers, d_model 2048,
+   1.6B parameters) under the dense and paged layouts with every prefill's
+   WKV through the kernel, and dense once with the plain chunked
+   recurrence; the same 16 requests on 8 slots of 512.  Each run: every
+   request served, ``wkv6_chunked`` launched once per layer per prefill (0
+   on the plain path; decode steps are the one-token update); a profile of
+   the dense kernel and plain runs gives the device's busy share and the
+   kernel's device time per launch; paged streams must equal dense ones (the
+   paged layout pages nothing for rwkv6), the plain path's first stream
+   divergence is printed, and the first prefill row and decode step
+   logits must be finite and within 2e-2 of the largest logit;
+6. training RecLLM-base at full width in float32 (178.0M parameters, the
    full dataset, batch 32 x seq 32) through ``repro_torch.runtime.trainer``'s
    data-parallel step on a one-rank NCCL group: 20 steps each under flat,
    hierarchical, 1-bit and top-k sync with the kernels, then 1-bit and
@@ -174,6 +193,8 @@ KERNELS = {
                      "src/repro/kernels/fused_adamw.py:29"),
     "moe_router": ("src/repro_torch/kernels/csrc/moe_router.cu",
                    "src/repro/kernels/moe_router.py:39"),
+    "wkv6_chunked": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                     "src/repro/kernels/wkv6.py:66"),
 }
 NO_LIBRARY = {
     "flash_decode_quant": "no PyTorch call attends over int8 values with "
@@ -186,6 +207,7 @@ NO_LIBRARY = {
     "onebit_dequantize": "no PyTorch call unpacks sign bits to +-scale",
     "topk_sparsify": "no PyTorch call thresholds rows at the k-th largest "
                      "distinct magnitude",
+    "wkv6_chunked": "no PyTorch call computes the WKV6 recurrence",
 }
 
 
@@ -206,6 +228,7 @@ def _wrappers():
     from repro_torch.kernels import grad_compress as gc
     from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import topk_sparsify as tk
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.kernels.flash_attention import flash_attention
     return {"flash_attention": flash_attention,
             "flash_decode": dk.flash_decode_attention,
@@ -218,7 +241,8 @@ def _wrappers():
             "gather_rows": eo.gather_rows,
             "scatter_add_rows": eo.scatter_add_rows,
             "adamw_update": fa.adamw_update,
-            "moe_router": mr.moe_router}
+            "moe_router": mr.moe_router,
+            "wkv6_chunked": wk.wkv6_chunked}
 
 
 def reset_launches():
@@ -297,6 +321,22 @@ def _time_ms(torch, fn, flush, iters=30):
     raise SmokeFailure(f"queueing the timed call took up to {host_max:.3f} "
                        f"ms, longer than 0.8 of the {spin:.3f} ms spin, in "
                        f"{3 * iters - len(times)} of {3 * iters} calls")
+
+
+def _profiled_ms(torch, fn, flush, iters):
+    """Mean device time of fn over ``iters`` calls: the summed durations of
+    its CUDA kernels, each call traced alone by ``torch.profiler`` after an
+    L2 flush.  For a plain version of more small launches than a spin can
+    hold queued: like :func:`_time_ms` it counts the device's work, not its
+    waits on the host between launches (nor the gaps of a few microseconds
+    between queued kernels, which :func:`_time_ms` includes)."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda.synchronize()
+        total += sum(ms for ms, _ in _device_time(torch, fn).values())
+    return total / iters
 
 
 def _spin_ms(torch):
@@ -626,26 +666,31 @@ def _device_time(torch, fn):
     in ms, launches)}.  Kernels on one stream never overlap, so the sum
     over names is the time the device was busy.  Only the device is
     traced: host-side operator events would add nothing read here and
-    most of the trace's processing time."""
+    most of the trace's processing time.  The profiler's raw events are
+    read, not ``prof.events()``, which builds a Python object for every
+    event and correlates them (about 25 times slower to read)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, n + 1)
     return by_name
 
 
-def serve_measured(name, cfg, ecfg, run, n_requests, per_layer):
-    """Warm-up, then one run between a reset and a read of every launch
-    counter.  Every request must finish, and each kernel in ``per_layer``
-    (name -> "prefill", "decode" or "both") must have launched once per
-    layer per prefill, per decode step or per both, every other kernel
-    never.  Returns ({summary, wall_s, launches}, the token streams)."""
-    run()                                   # warm-up: CUDA, cuBLAS init
+def serve_measured(name, cfg, ecfg, run, n_requests, per_layer,
+                   warm_up=True):
+    """Warm-up (unless an earlier run of the same kernels was one), then
+    one run between a reset and a read of every launch counter.  Every
+    request must finish, and each kernel in ``per_layer`` (name ->
+    "prefill", "decode" or "both") must have launched once per layer per
+    prefill, per decode step or per both, every other kernel never.
+    Returns ({summary, wall_s, launches}, the token streams)."""
+    if warm_up:
+        run()                               # warm-up: CUDA, cuBLAS init
     reset_launches()
     t0 = time.perf_counter()
     outputs, _, summary = run()
@@ -687,7 +732,9 @@ def profile_serve(torch, name, run, wall_s, tags):
     over the measured (unprofiled) run's wall time, the top kernels, and
     the device time per launch of each kernel in ``tags`` (report name ->
     a substring of its CUDA kernel's name)."""
+    t0 = time.perf_counter()
     by_name = _device_time(torch, run)
+    profile_s = time.perf_counter() - t0
     wall_ms = wall_s * 1e3
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(((n, ms) for n, (ms, _) in by_name.items()),
@@ -704,13 +751,14 @@ def profile_serve(torch, name, run, wall_s, tags):
               f"({busy_ms / wall_ms:.1%}); device ms per launch: "
               + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
               + "; top kernels: " + "; ".join(
-                  f"{n[:48]} {ms:.2f} ms" for n, ms in top))
+                  f"{n[:48]} {ms:.2f} ms" for n, ms in top)
+              + f"; the profiled run took {profile_s:.1f} s")
     else:
         print(f"[profile {name}] the profiler recorded no device time: "
               "device busy share not measured")
     return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
             "busy_share": busy_ms / wall_ms, "top_kernels_ms": top,
-            "device_ms_per_launch": per_launch}
+            "device_ms_per_launch": per_launch, "profile_s": profile_s}
 
 
 def first_logits(torch, tf, cfg, params, ctx, prompt, ecfg, nxt_token=None):
@@ -1015,6 +1063,104 @@ def phase_moe_serving(torch):
                   f"plain router's: {e}")
         params = leaves = None               # free the weights for the next
         torch.cuda.empty_cache()
+    return report
+
+
+# -- rwkv6 serving ------------------------------------------------------------
+
+WKV_TAGS = {"wkv6_chunked": "wkv6_kernel"}
+
+
+def phase_rwkv6_serving(torch):
+    """rwkv6-1.6b at full width (24 layers, d_model 2048, 32 heads of 64,
+    vocab 65,536) in bf16 through ``repro_torch.serving``: under the dense
+    and paged layouts with every prefill's WKV through the kernel, and
+    dense once with the plain chunked recurrence."""
+    from repro_torch import convert
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (CacheLayout, EngineConfig,
+                                     ServingEngine, TrafficConfig, generate,
+                                     make_backend)
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    cfg = get_arch("rwkv6-1.6b")
+    ecfg = EngineConfig(n_slots=8, max_len=512)
+    kern = tf.ModelCtx(attn_chunk=8, use_kernels=True)
+    plain = tf.ModelCtx(attn_chunk=8)
+    params = convert.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"[rwkv6] {cfg.name}: {cfg.num_layers} layers at full width "
+          f"(d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_size} "
+          f"heads of {cfg.rwkv_head_size}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size:,}), {cfg.dtype}: {n_params:,} parameters, "
+          f"{n_bytes / 1e9:.2f} GB")
+    report = {"runs": {}, "profile": {},
+              "model": {"params": n_params, "bytes": n_bytes}}
+    requests = generate(TrafficConfig(n_requests=16,
+                                      vocab_size=cfg.vocab_size, seed=0))
+
+    def run(ctx, layout=None):
+        e = ecfg if layout is None else dataclasses.replace(ecfg,
+                                                            layout=layout)
+        return ServingEngine(make_backend(cfg, params, ctx, layout=layout,
+                                          device=dev), e).run(requests)
+
+    # paged runs the dense run's model calls (warmed up by it); the kernel
+    # and plain dense runs are profiled, the device-time comparison the
+    # phase reports
+    streams = {}
+    for name, ctx, layout in (
+            ("dense", kern, None),
+            ("paged", kern, CacheLayout(kind="paged", block_size=BLOCK_MAIN)),
+            ("dense_plain", plain, None)):
+        per_layer = {"wkv6_chunked": "prefill"} if ctx.use_kernels else {}
+        fn = (lambda ctx=ctx, layout=layout: run(ctx, layout))
+        report["runs"][name], streams[name] = serve_measured(
+            f"rwkv6_{name}", cfg, ecfg, fn, len(requests), per_layer,
+            warm_up=name != "paged")
+        if name != "paged":
+            report["profile"][name] = profile_serve(
+                torch, f"rwkv6_{name}", fn, report["runs"][name]["wall_s"],
+                WKV_TAGS)
+    n_tok = sum(len(x) for x in streams["dense"].values())
+    div = _first_divergence(streams["paged"], streams["dense"])
+    check(div is None, f"rwkv6: paged streams differ from dense at (rid, "
+                       f"token) {div}, though the paged layout pages nothing")
+    print(f"[rwkv6] greedy streams, paged == dense with the kernel "
+          f"({n_tok} tokens)")
+    div = _first_divergence(streams["dense"], streams["dense_plain"])
+    report["plain_stream_divergence"] = div
+    print("[rwkv6] greedy streams, kernel vs plain chunked recurrence: "
+          + ("equal" if div is None
+             else f"first differ at (rid, token) {div}"))
+    # the first prefill row and decode step through both WKV paths: finite,
+    # and within the bf16 tolerance of the largest logit
+    rows, steps = {}, {}
+    for name, ctx in (("kernel", kern), ("plain", plain)):
+        tok = torch.argmax(rows["kernel"]) if rows else None
+        rows[name], steps[name] = first_logits(
+            torch, tf, cfg, params, ctx, requests[0].prompt, ecfg, tok)
+    check(all(bool(torch.isfinite(x).all())
+              for x in (*rows.values(), *steps.values())),
+          "rwkv6: non-finite logits")
+    scale = max(float(rows["plain"].float().abs().max()),
+                float(steps["plain"].float().abs().max()))
+    e = {"prefill_abs": _max_err(rows["kernel"], rows["plain"]),
+         "decode_abs": _max_err(steps["kernel"], steps["plain"]),
+         "largest_logit": scale}
+    report["logit_errs"] = e
+    print(f"[rwkv6] bf16 logits, WKV kernel vs plain chunked recurrence: "
+          f"first prefill row max abs diff {e['prefill_abs']:.3g}, first "
+          f"decode step {e['decode_abs']:.3g} (tolerance {BF16_TOL} "
+          f"relative to the largest logit {scale:.3g})")
+    check(max(e["prefill_abs"], e["decode_abs"]) <= BF16_TOL * scale,
+          f"rwkv6: the WKV kernel's logits differ from the plain path's: {e}")
+    params = leaves = None
+    torch.cuda.empty_cache()
     return report
 
 
@@ -1447,6 +1593,137 @@ def phase_router_kernel(torch, report):
     return report
 
 
+# (B, H, T, hs, chunk): the cases of tests/test_kernels.py (the JAX
+# kernel's), then rwkv6-1.6b's serving prefill (48 tokens, chunk
+# gcd(32, 48) = 16) and a long prompt
+WKV_CASES = [(2, 2, 64, 16, 16), (1, 4, 32, 8, 8), (2, 1, 96, 32, 32)]
+WKV_TIMED = [(1, 32, 48, 64, 16), (1, 32, 4096, 64, 32)]
+WKV_TOL = 2e-4           # of max(1, the largest |plain value|): float32 sums
+                         # in other orders (the plain chunked version and the
+                         # scan part by ~3e-6 of it at T = 4096)
+WKV_PAD_LEN = 37         # true prompt length inside the 48-token serve shape
+
+
+def wkv6_inputs(torch, inp, B, H, T, hs):
+    """Seeded f32 streams as the JAX kernel test draws them: w = exp(-exp(2
+    n - 2)) spans fast to slow decay; u = 0.1 n."""
+    r, k, v = (inp.randn(B, H, T, hs, dtype=torch.float32) for _ in range(3))
+    w = torch.exp(-torch.exp(inp.randn(B, H, T, hs, dtype=torch.float32)
+                             * 2 - 2))
+    return r, k, v, w, inp.randn(H, hs, dtype=torch.float32) * 0.1
+
+
+def wkv6_work(B, H, T, hs, chunk):
+    """(bytes, operations) of one call: r, k, v, w and u read once, o and
+    the final state written once; per chunk of C and (b, h), the running
+    log-decay sum (3 a value), the strictly causal pairs' exp-weighted dot
+    (5 a channel: difference, clamp, exp, two products), the bonus (3),
+    both decay factors (4), M v over s <= t (2 a term), the cross term and
+    the state update (2 a term each) and the state decay (2)."""
+    C, nc = chunk, T // chunk
+    nbytes = (5 * B * H * T * hs + B * H * hs * hs + H * hs) * 4
+    per_chunk = (3 * C * hs + 5 * C * (C - 1) // 2 * hs + 3 * C * hs
+                 + 4 * C * hs + 2 * C * (C + 1) // 2 * hs
+                 + 2 * C * hs * hs + 2 * C * hs * hs + 2 * hs * hs)
+    return nbytes, B * H * nc * per_chunk
+
+
+def phase_wkv6_kernel(torch, report):
+    """wkv6_chunked against its plain version (the chunked recurrence) and
+    the sequential scan: the JAX test cases, w = 1e-6, pads frozen with w =
+    1 and k = 0, the final state; then timed at the serve and long shapes;
+    rows added to ``report["timing"]``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+    inp = Inputs(torch)
+    errs = {}
+
+    def held(what, got, plain):
+        """max |got - plain| over max(1, max |plain|), checked."""
+        e = _max_err(got, plain) / max(1.0, float(plain.abs().max()))
+        check(e <= WKV_TOL, f"wkv6_chunked {what}: {e} of the largest value "
+                            f"from the plain version > {WKV_TOL}")
+        return e
+
+    for B, H, T, hs, chunk in WKV_CASES + WKV_TIMED:
+        r, k, v, w, u = wkv6_inputs(torch, inp, B, H, T, hs)
+        for decay in (None, 1e-6):
+            ww = w if decay is None else torch.full_like(w, decay)
+            o, S = wk.wkv6_chunked(r, k, v, ww, u, chunk=chunk)
+            check(bool(torch.isfinite(o).all() and torch.isfinite(S).all()),
+                  f"wkv6_chunked {(B, H, T, hs, chunk)} w={decay}: "
+                  "non-finite output")
+            po, pS = ref.wkv6_chunked_state(r, k, v, ww, u, chunk)
+            so, sS = ref.wkv6_scan(r, k, v, ww, u)
+            key = (B, H, T, hs, chunk, decay)
+            errs[key] = max(held(f"{key} o", o, po), held(f"{key} S", S, pS),
+                            held(f"{key} o vs scan", o, so),
+                            held(f"{key} S vs scan", S, sS))
+    # pads frozen (w = 1, k = 0 past the true length): the final state is
+    # the unpadded prompt's, and the live outputs are unchanged
+    B, H, T, hs, chunk = WKV_TIMED[0]
+    r, k, v, w, u = wkv6_inputs(torch, inp, B, H, T, hs)
+    w[:, :, WKV_PAD_LEN:] = 1.0
+    k[:, :, WKV_PAD_LEN:] = 0.0
+    o, S = wk.wkv6_chunked(r, k, v, w, u, chunk=chunk)
+    cut = [x[:, :, :WKV_PAD_LEN].contiguous() for x in (r, k, v, w)]
+    co, cS = ref.wkv6_scan(*cut, u)
+    errs["pads"] = max(held("pads: S vs the unpadded prompt's", S, cS),
+                       held("pads: live o", o[:, :, :WKV_PAD_LEN], co))
+    print(f"[kernels] wkv6_chunked: {len(WKV_CASES + WKV_TIMED)} shapes "
+          f"(B, H, T, hs, chunk) in {WKV_CASES + WKV_TIMED}, each with drawn "
+          f"decays and with w = 1e-6, output and final state within "
+          f"{WKV_TOL} of the largest value of the plain chunked version and "
+          f"of the sequential scan (worst {max(errs.values()):.3g}); pads "
+          f"frozen past {WKV_PAD_LEN} of {T} tokens give the unpadded "
+          f"prompt's state ({errs['pads']:.3g})")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=inp.dev)
+    rows = []
+    for B, H, T, hs, chunk in WKV_TIMED:
+        r, k, v, w, u = wkv6_inputs(torch, inp, B, H, T, hs)
+        plain = (lambda r=r, k=k, v=v, w=w, u=u, c=chunk:
+                 ref.wkv6_chunked_state(r, k, v, w, u, c))
+        scan = (lambda r=r, k=k, v=v, w=w, u=u: ref.wkv6_scan(r, k, v, w, u))
+        nbytes, ops = wkv6_work(B, H, T, hs, chunk)
+        (o, S), (po, pS) = wk.wkv6_chunked(r, k, v, w, u, chunk=chunk), plain()
+
+        t = {"shape": f"B={B} H={H} T={T} hs={hs} chunk={chunk} f32"
+                      + (" (rwkv6-1.6b's longest serve prefill)" if T == 48
+                         else " (a long prompt)"),
+             "max_abs_err": max(_max_err(o, po), _max_err(S, pS)),
+             "largest_value": float(po.abs().max()),
+             "rel_err_checked": errs[(B, H, T, hs, chunk, None)],
+             "tol": WKV_TOL,
+             "ms": _time_ms(torch, lambda: wk.wkv6_chunked(
+                 r, k, v, w, u, chunk=chunk), flush),
+             # the plain versions loop over chunks or tokens: hundreds to
+             # tens of thousands of small launches, more than a spin can
+             # hold queued, so their device time is the profiler's sum of
+             # their kernels (the scan at T = 4096, ~0.6 s of host time a
+             # call, once)
+             "plain_ms": _profiled_ms(torch, plain, flush, 5),
+             "scan_ms": _profiled_ms(torch, scan, flush,
+                                     5 if T <= 48 else 1),
+             "library_ms": None, "library_note": NO_LIBRARY["wkv6_chunked"],
+             "bytes": nbytes, "operations": ops,
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": ops / F32_OPS_PER_S * 1e3}
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        rows.append(t)
+        print(f"[time wkv6_chunked] {t['shape']}: kernel {t['ms']:.4f} ms, "
+              f"plain chunked {t['plain_ms']:.4f} ms, sequential scan "
+              f"{t['scan_ms']:.4f} ms (both the profiler's kernel sum), no "
+              f"library call, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {nbytes:,} bytes, "
+              f"{ops:,} operations), max abs err {t['max_abs_err']:.3g} "
+              f"(largest value {t['largest_value']:.3g})")
+    report["timing"]["wkv6_chunked"] = rows
+    return report
+
+
 def check_autograd_guard(torch):
     """Every kernel wrapper raises on the card when autograd would record
     the call (the kernels have no backward): a training caller gets an
@@ -1457,6 +1734,7 @@ def check_autograd_guard(torch):
              for k, cases in _case_builders(inp).items()}
     g = inp.randn(8 * 512, dtype=torch.float32)
     packed, scales = ref.onebit_quantize(g.reshape(8, -1), 512)
+    x4 = g[:2048].reshape(1, 2, 64, 16)
     wrappers = _wrappers()
     calls.update({
         "onebit_quantize": (wrappers["onebit_quantize"], (g.reshape(8, -1),)),
@@ -1468,7 +1746,9 @@ def check_autograd_guard(torch):
         "scatter_add_rows": (wrappers["scatter_add_rows"],
                              (g.reshape(64, -1), inp.ints([0, 2] * 32), 4)),
         "adamw_update": (wrappers["adamw_update"], (g, g, g, g.abs(), g[:8])),
-        "moe_router": (wrappers["moe_router"], (g.reshape(64, -1), 6))})
+        "moe_router": (wrappers["moe_router"], (g.reshape(64, -1), 6)),
+        "wkv6_chunked": (wrappers["wkv6_chunked"],
+                         (x4, x4, x4, x4.sigmoid(), g[:32].reshape(2, 16)))})
     for name, (fn, args) in calls.items():
         leaf = args[0] if args[0].is_floating_point() else args[1]
         leaf.requires_grad_()
@@ -1826,11 +2106,13 @@ def main(argv=None) -> int:
         report["kernels"] = timed("kernels", phase_kernels)
         for name, fn in (("compress_kernels", phase_compress_kernels),
                          ("embed_kernels", phase_embed_kernels),
-                         ("router_kernel", phase_router_kernel)):
+                         ("router_kernel", phase_router_kernel),
+                         ("wkv6_kernel", phase_wkv6_kernel)):
             timed(name, fn, report["kernels"])
         timed("autograd_guard", check_autograd_guard)
         report["serving"] = timed("serving", phase_serving)
         report["moe_serving"] = timed("moe_serving", phase_moe_serving)
+        report["rwkv6_serving"] = timed("rwkv6_serving", phase_rwkv6_serving)
         report["training"] = timed("training", phase_training)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1852,7 +2134,8 @@ def main(argv=None) -> int:
                "gather_rows": ("training", "flat_embed"),
                "scatter_add_rows": ("training", "flat_embed"),
                "adamw_update": ("training", "flat_fused_adamw"),
-               "moe_router": ("moe_serving", "moonlight_dense")}
+               "moe_router": ("moe_serving", "moonlight_dense"),
+               "wkv6_chunked": ("rwkv6_serving", "dense")}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape

@@ -23,13 +23,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig
 from repro_torch.models import layers
-from repro_torch.models.transformer import check_ported
+from repro_torch.models.transformer import check_ported, family
 
 # Leaves the JAX init keeps in float32 whatever the model dtype (norm
-# parameters, the MoE router and the qk-norm scales, RecLLM's CF tables and
-# fusion gate); every other floating leaf is in the model dtype.
-_F32_LEAVES = ("scale", "bias", "router", "q_norm", "k_norm", "cf_user",
-               "cf_item", "fusion_gate")
+# parameters, the MoE router and the qk-norm scales, rwkv6's token-shift
+# mixes, decay base and bonus, RecLLM's CF tables and fusion gate); every
+# other floating leaf is in the model dtype.
+_F32_LEAVES = ("scale", "bias", "router", "q_norm", "k_norm", "mix",
+               "w_base", "u", "cf_user", "cf_item", "fusion_gate")
 
 
 def _to_tensor(x: np.ndarray, key: str, device, dtype) -> torch.Tensor:
@@ -64,10 +65,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Fresh parameters for ``cfg`` from ``generator``: normal(0, 1) draws
     scaled by ``1/sqrt(in)`` for dense and expert weights (``d**-0.5`` for
     the float32 MoE router) and by 0.02 for the embedding, zeros for the
-    RMSNorm and qk-norm scales, in the JAX init's order of shapes and key
-    names.  Drawn in float32 on the generator's device one layer at a time
-    (a whole stacked expert leaf in float32 would be a temporary of
-    gigabytes), then cast to the model dtype on ``device``."""
+    RMSNorm and qk-norm scales, ones and zeros for layernorm, and rwkv6's
+    constants (mixes 0.5, decay base -6, bonus 0), with the JAX init's
+    shapes and key names.  Drawn in float32 on the generator's device one
+    layer at a time (a whole stacked expert leaf in float32 would be a
+    temporary of gigabytes), then cast to the model dtype on ``device``."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
@@ -94,10 +96,27 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         return {k: v.expand(L, *v.shape).clone()
                 for k, v in layers.init_norm(cfg, device=dev).items()}
 
+    def const(value, *shape):
+        return torch.full((L,) + shape, value, dtype=torch.float32,
+                          device=dev)
+
     params = {"embed": draw((cfg.padded_vocab, d), 0.02, dtype),
               "final_norm": layers.init_norm(cfg, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = draw((d, cfg.padded_vocab), d ** -0.5, dtype)
+    if family(cfg) == "rwkv6":          # ssm.init_rwkv6 / init_rwkv_cmix
+        hs, f = cfg.rwkv_head_size, cfg.d_ff
+        lora = max(32, d // 32)
+        tmix = {"mix": const(0.5, 5, d),
+                **{n: dense(d, d) for n in ("Wr", "Wk", "Wv", "Wg", "Wo")},
+                "w_base": const(-6.0, d),
+                "w_lora_a": dense(d, lora), "w_lora_b": dense(lora, d),
+                "u": const(0.0, d // hs, hs), "ln_x": norm()}
+        cmix = {"mix": const(0.5, 2, d), "Wk": dense(d, f),
+                "Wv": dense(f, d), "Wr": dense(d, d)}
+        params["blocks"] = {"tmix": tmix, "cmix": cmix, "norm1": norm(),
+                            "norm2": norm()}
+        return params
     attn = {"norm": norm(), "wq": dense(d, cfg.q_dim),
             "wk": dense(d, cfg.kv_dim), "wv": dense(d, cfg.kv_dim),
             "wo": dense(cfg.q_dim, d)}

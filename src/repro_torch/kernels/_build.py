@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "flash_decode", "grad_compress",
            "topk_sparsify", "embedding_ops", "fused_adamw",
-           "moe_router")
+           "moe_router", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +51,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
                                [_P] * 4 + [_L, _I, _L, _P]),
     "repro_adamw_update": ("fused_adamw", [_P] * 8 + [_L, _P]),
     "repro_moe_router": ("moe_router", [_P] * 4 + [_L, _I, _I, _P]),
+    "repro_wkv6_chunked": ("wkv6", [_P] * 7 + [_I] * 5 + [_P]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

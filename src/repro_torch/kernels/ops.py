@@ -7,7 +7,9 @@ point keyed off a :class:`~repro_torch.cache_layout.CacheLayout`, over the
 whole (dense | paged) x (16-bit | int8) x (ref | dense | flash) matrix.
 The gradient-compression entry points take the flat gradient, as JAX's do;
 so do the embedding gather / scatter-add and the fused AdamW update;
-:func:`moe_router` takes the (tokens, experts) router logits.
+:func:`moe_router` takes the (tokens, experts) router logits, and
+:func:`wkv6_chunked` the RWKV-6 streams in the kernel's (B, H, T, hs)
+layout.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.kernels import fused_adamw as _adamw
 from repro_torch.kernels import grad_compress as _gc
 from repro_torch.kernels import moe_router as _router
 from repro_torch.kernels import topk_sparsify as _topk
+from repro_torch.kernels import wkv6 as _wkv6
 
 
 def _check_impl(impl: str) -> None:
@@ -146,6 +149,23 @@ def moe_router(logits, k: int, impl="kernel"):
     if impl == "ref":
         return ref.moe_router(logits, k)
     return _router.moe_router(logits, k)
+
+
+# -- chunked WKV6 -------------------------------------------------------------
+
+def wkv6_chunked(r, k, v, w, u, chunk: int = 32, impl="kernel",
+                 return_state: bool = False):
+    """r, k, v, w (B, H, T, hs) -> (B, H, T, hs) in r's dtype; zero initial
+    state, T % chunk == 0.  ``return_state`` also returns the final (B, H,
+    hs, hs) f32 state.  ``impl="ref"`` is the sequential scan (the JAX
+    package's oracle); ``impl="kernel"`` the chunked kernel."""
+    _check_impl(impl)
+    if impl == "ref":
+        o, S = ref.wkv6_scan(r, k, v, w, u)
+        o = o.to(r.dtype)
+    else:
+        o, S = _wkv6.wkv6_chunked(r, k, v, w, u, chunk=chunk)
+    return (o, S) if return_state else o
 
 
 # -- 1-bit compression -------------------------------------------------------

@@ -287,3 +287,77 @@ def adamw_update(p, g, m, v, *, lr, b1, b2, eps, wd, bc1, bc2):
     vh = v1 / bc2
     p1 = p - lr * (mh / (torch.sqrt(vh) + eps) + wd * p)
     return p1, m1, v1
+
+
+# ---------------------------------------------------------------------------
+# chunked WKV6 (layout (B, H, T, hs); float32 arithmetic, zero or given
+# initial state)
+# ---------------------------------------------------------------------------
+
+def wkv6_scan(r, k, v, w, u):
+    """The sequential recurrence from a zero state:
+    ``S_t = diag(w_t) S_{t-1} + k_t v_tᵀ``,
+    ``o_t = r_t (S_{t-1} + diag(u) k_t v_tᵀ)``.  r, k, v, w (B, H, T, hs),
+    u (H, hs) -> (o (B, H, T, hs) f32, final S (B, H, hs, hs) f32)."""
+    B, H, T, hs = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    uu = u.float()[..., None]                            # (H, hs, 1)
+    S = r.new_zeros((B, H, hs, hs))
+    out = []
+    for t in range(T):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        out.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], S + uu * kv))
+        S = w[:, :, t, :, None] * S + kv
+    return torch.stack(out, dim=2), S
+
+
+def wkv6_chunked(r, k, v, w, u):
+    """``repro/kernels/ref.py``'s oracle: the sequential scan's output in
+    r's dtype."""
+    return wkv6_scan(r, k, v, w, u)[0].to(r.dtype)
+
+
+def wkv6_chunked_state(r, k, v, w, u, chunk: int, S0=None):
+    """The chunked recurrence of ``repro/models/ssm._wkv6_chunked`` (the
+    model's plain path and the CUDA kernel's plain version), in the kernel's
+    layout.  r, k, v, w (B, H, T, hs) with T % chunk == 0, u (H, hs), S0
+    (B, H, hs, hs) or None for zeros -> (o f32, final S f32).
+
+    Per chunk of C tokens, with ``cum_t = sum_{s<=t} log w_s`` (<= 0):
+    ``o_t = sum_{s<t} (r_t . exp(cum_{t-1} - cum_s) k_s) v_s
+    + (r_t * exp(cum_{t-1})) S + (r_t . u k_t) v_t`` and
+    ``S' = exp(cum_C) S + sum_s (k_s exp(cum_C - cum_s)) v_sᵀ``; every
+    exponent is <= 0, so nothing overflows."""
+    B, H, T, hs = r.shape
+    if T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    nc = T // chunk
+
+    def split(t):                                        # (nc, B, H, C, hs)
+        return t.float().reshape(B, H, nc, chunk, hs).permute(2, 0, 1, 3, 4)
+
+    rc, kc, vc, wc = map(split, (r, k, v, w))
+    uu = u.float()[None, :, None, :]                     # (1, H, 1, hs)
+    S = (r.new_zeros((B, H, hs, hs), dtype=torch.float32) if S0 is None
+         else S0.float())
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=r.device).tril(-1)[..., None]     # s < t
+    outs = []
+    for rt, kt, vt, wt in zip(rc, kc, vc, wc):           # (B, H, C, hs)
+        # 1e-30: a subnormal floor may flush to zero -> log(0)
+        lw = torch.log(torch.clamp(wt, min=1e-30))
+        cum = torch.cumsum(lw, dim=2)
+        cum_prev = cum - lw
+        cum_c = cum[:, :, -1:]
+        expo = cum_prev[:, :, :, None] - cum[:, :, None]  # (B,H,t,s,hs)
+        dec = torch.where(causal, torch.exp(torch.clamp(expo, max=0.0)),
+                          0.0)
+        m = torch.einsum("bhtc,bhtsc,bhsc->bhts", rt, dec, kt)
+        o = torch.einsum("bhts,bhsv->bhtv", m, vt)
+        o = o + torch.einsum("bhtc,bhcv->bhtv", rt * torch.exp(cum_prev), S)
+        o = o + torch.sum(rt * kt * uu, dim=-1, keepdim=True) * vt
+        k2 = kt * torch.exp(cum_c - cum)
+        S = torch.exp(cum_c)[:, :, 0, :, None] * S \
+            + torch.einsum("bhsc,bhsv->bhcv", k2, vt)
+        outs.append(o)
+    return torch.cat(outs, dim=2), S

@@ -1,5 +1,6 @@
 """Serving launcher: the continuous-batching engine under simulated recsys
-load (port of ``repro/launch/serve.py``, engine mode, greedy uniform slice).
+load (port of ``repro/launch/serve.py``, engine mode, greedy decode of the
+uniform and rwkv6 families).
 
 Runs on the GPU unless ``--device cpu``; reports throughput and p50/p95/p99
 TTFT / per-token latency against SLO tiers:
@@ -10,16 +11,22 @@ TTFT / per-token latency against SLO tiers:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --cache-layout paged --kv int8 --decode-impl flash
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --arch moonshot-v1-16b-a3b --moe-kernel --attn-impl flash \\
+      --arch moonshot-v1-16b-a3b --kernels --attn-impl flash \\
       --decode-impl flash
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --kernels --slots 8 --max-len 512
 
 ``--attn-impl flash`` runs prefill attention through the CUDA flash-attention
 kernel (the JAX package's ``pallas`` value); ``--decode-impl flash`` runs
 every decode step through the CUDA flash-decode kernel of the cache layout;
-``--moe-kernel`` routes every MoE FFN through the CUDA router kernel
-(``ModelCtx.use_kernels``, the JAX package's switch of the same name).
-The layout flags (``--kv``, ``--cache-layout``, ``--block-size``,
-``--num-blocks``, ``--no-prefix-sharing``) fold into one
+``--kernels`` sets ``ModelCtx.use_kernels``, the JAX package's switch of
+that name, which drives every kernel of the model stack: every MoE FFN
+routes through the CUDA router kernel, and every rwkv6 prefill's WKV
+recurrence runs through the CUDA chunked-WKV6 kernel.  rwkv6
+serves under the dense and paged layouts; ``--kv int8`` exits with the
+reference's error (it carries no KV).  The layout flags (``--kv``,
+``--cache-layout``, ``--block-size``, ``--num-blocks``,
+``--no-prefix-sharing``) fold into one
 :class:`~repro_torch.cache_layout.CacheLayout`, as in the JAX launcher.
 Weights are random, drawn from ``--seed``.
 """
@@ -66,22 +73,27 @@ def run_engine(args) -> int:
                         refill=args.refill, sample_seed=args.seed,
                         layout=layout)
     ctx = ModelCtx(attn_impl=args.attn_impl, attn_chunk=8,
-                   use_kernels=args.moe_kernel)
+                   use_kernels=args.kernels)
 
     def mk_server():
         backend = make_backend(cfg, params, ctx, layout=layout,
                                device=device)
         return ServingEngine(backend, ecfg)
 
+    try:
+        server = mk_server()
+    except ValueError as e:       # layout/family mismatches
+        raise SystemExit(str(e))
     if not args.no_warmup:
         # first-use costs (kernel builds, CUDA context, cuBLAS handles)
         # stay outside the measured run, as in a resident server
-        mk_server().run(requests)
-    outputs, records, summary = mk_server().run(requests)
+        server.run(requests)
+        server = mk_server()
+    outputs, records, summary = server.run(requests)
 
     title = (f"{cfg.name} {args.cache_layout} kv={args.kv} "
              f"attn={args.attn_impl} "
-             f"decode={args.decode_impl} moe_kernel={args.moe_kernel} "
+             f"decode={args.decode_impl} kernels={args.kernels} "
              f"refill={args.refill} "
              f"slots={args.slots} {args.process}@{args.rate:g}req/s "
              f"on {device}")
@@ -128,10 +140,12 @@ def main(argv=None) -> int:
                     help="decode attention: dense einsum over the padded "
                          "(or gathered paged) cache, or the CUDA "
                          "flash-decode kernel of the layout")
-    ap.add_argument("--moe-kernel", action="store_true",
-                    help="MoE archs: route every MoE FFN through the CUDA "
-                         "router kernel (softmax + top-k) instead of the "
-                         "plain softmax and sort")
+    ap.add_argument("--kernels", action="store_true",
+                    help="ModelCtx.use_kernels: every hand-written kernel "
+                         "of the model stack (MoE: the CUDA router kernel; "
+                         "rwkv6: each prefill's WKV recurrence through the "
+                         "CUDA chunked-WKV6 kernel) instead of its plain "
+                         "version")
     ap.add_argument("--refill", default="continuous",
                     choices=("continuous", "static"))
     ap.add_argument("--queue-capacity", type=int, default=64)

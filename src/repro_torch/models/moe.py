@@ -7,10 +7,11 @@ groups of ``G = gcd(group_size, S)``; each (token, slot) takes a place in
 its expert's queue by a slot-major cumsum, and places past the capacity C
 are dropped.  The one-hot ``dispatch`` / ``combine`` tensors keep the
 reference's order of sums, so the port's outputs follow JAX's.  The
-expert products are plain batched matrix products (``torch.einsum``), as
-the JAX package leaves them to XLA; with 16-bit weights each product is
-rounded to the model dtype before the float32 activation, where JAX keeps
-it in float32 (``preferred_element_type``).
+expert products are plain batched matrix products (``torch.bmm``), as the
+JAX package leaves them to XLA, one batch entry per expert.  Where JAX asks
+for a float32 result (``preferred_element_type``: the gate and up products
+and the final combine) the port takes one too and rounds to the model
+dtype where JAX does: after the activation, and after the combine.
 
 Aux outputs: the Switch load-balance loss, the router z-loss and the
 per-expert load counts.  The serving path is ported; MoE training with
@@ -52,6 +53,19 @@ def router_topk(logits: torch.Tensor, k: int, use_kernel: bool = False
 def _capacity(group: int, k: int, E: int, factor: float) -> int:
     c = int(group * k / E * factor)
     return max(8, -(-c // 8) * 8)   # round up to 8
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` with a float32 result from operands in their own
+    dtype: JAX's ``preferred_element_type=jnp.float32``.  On CUDA one cuBLAS
+    call writes float32; the CPU has no such kernel, so there the operands
+    are upcast one batch entry (one expert) at a time: a stacked 16-bit
+    expert leaf is never copied to float32 whole."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.stack([x.float() @ y.float() for x, y in zip(a, b)])
 
 
 def _one_hot(idx, n: int) -> torch.Tensor:
@@ -99,19 +113,19 @@ def moe_ffn(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
     dispatch = torch.einsum("gtke,gtkc->gtec", onehot, poshot).to(dt)
     combine = torch.einsum("gtke,gtkc->gtec", onehot * gates_k[..., None],
                            poshot).to(dt)
-    expert_in = torch.einsum("gtec,gtd->gecd", dispatch, xg)     # (g,E,C,d)
+    # expert-major (E, g*C, d): one batch entry per expert for the bmms
+    expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xg).reshape(
+        E, g * C, d)
     act = layers.activation(cfg.act)
     if cfg.mlp_gated:
-        h = act(torch.einsum("gecd,edf->gecf", expert_in,
-                             params["wi_gate"]).float()) \
-            * torch.einsum("gecd,edf->gecf", expert_in,
-                           params["wi_up"]).float()
-        h = h.to(dt)
+        h = act(_bmm_f32(expert_in, params["wi_gate"])) \
+            * _bmm_f32(expert_in, params["wi_up"])
     else:
-        h = act(torch.einsum("gecd,edf->gecf", expert_in,
-                             params["wi"]).float()).to(dt)
-    expert_out = torch.einsum("gecf,efd->gecd", h, params["wo"])
-    out = torch.einsum("gtec,gecd->gtd", combine, expert_out)
+        h = act(_bmm_f32(expert_in, params["wi"]))
+    expert_out = torch.bmm(h.to(dt), params["wo"])               # (E,gC,d)
+    expert_out = expert_out.reshape(E, g, C, d).transpose(0, 1).reshape(
+        g, E * C, d)
+    out = _bmm_f32(combine.reshape(g, G, E * C), expert_out)     # (g,G,d)
 
     # aux statistics (Switch LB loss over all tokens)
     frac_tokens = torch.mean(onehot[..., 0, :], dim=(0, 1))      # top-1 frac

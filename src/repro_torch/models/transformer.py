@@ -1,6 +1,7 @@
-"""The uniform decoder-only stack (port of the dense uniform slice of
-``repro/models/transformer.py``): forward, per-slot prefill and one-token
-decode over a stacked KV cache.
+"""The uniform decoder-only stack and the attention-free rwkv6 stack (port
+of those two families of ``repro/models/transformer.py``): forward,
+per-slot prefill and one-token decode over a stacked KV cache or stacked
+recurrent states.
 
 Parameters are a plain dict keyed like the JAX pytree; the per-layer
 leaves under ``params["blocks"]`` stay stacked ``(L, ...)`` and the layers
@@ -17,10 +18,15 @@ D)`` pools they were given, and return the same tensors.  Only
 backward is PyTorch's autograd through the ``chunked`` (or ``naive``)
 attention path, since the CUDA attention kernels have no backward yet.
 
-This slice covers the uniform family -- RecLLM, and the MoE archs with
-qk-norm (:mod:`repro_torch.models.moe`) -- with dense and paged caches:
-M-RoPE, learned positions, the other families and chunked prefill raise
-``NotImplementedError``; they are queued in ``ROADMAP.md``.
+The rwkv6 family (:mod:`repro_torch.models.ssm`) keeps per layer a
+(B, H, hs, hs) WKV state and two token-shift rows in ``cache["states"]``,
+written in place by the prefill and the decode step like the KV cache.
+
+This port covers the uniform family -- RecLLM, and the MoE archs with
+qk-norm (:mod:`repro_torch.models.moe`) -- with dense and paged caches, and
+the rwkv6 family: M-RoPE, learned positions, the other families and
+chunked prefill raise ``NotImplementedError``; they are queued in
+``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from repro_torch import resolve_device
 from repro_torch.cache_layout import CacheLayout
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +50,7 @@ class ModelCtx:
     attn_impl: str = "chunked"       # naive | chunked | flash (CUDA kernel)
     attn_chunk: int = 1024
     decode_impl: str = "dense"       # dense | flash (CUDA flash-decode)
-    use_kernels: bool = False        # MoE router through the CUDA kernel
+    use_kernels: bool = False        # MoE router, rwkv6 WKV: CUDA kernels
     moe_group: int = 256
     moe_capacity_factor: float = 1.25
 
@@ -61,17 +67,22 @@ def family(cfg: ArchConfig) -> str:
     return "uniform"
 
 
+# Families whose decode state is a pure KV cache (rejected draft rows can
+# be abandoned); rwkv6 carries recurrent per-token state that cannot rewind
+SPEC_FAMILIES = ("uniform", "gemma", "whisper")
+
+
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for every architecture feature this slice does not port."""
+    """Raise for every architecture feature the port does not cover."""
     fam = family(cfg)
     missing = [what for what, bad in (
-        (f"family {fam!r}", fam != "uniform"),
+        (f"family {fam!r}", fam not in ("uniform", "rwkv6")),
         (f"pos_type {cfg.pos_type!r}", cfg.pos_type not in ("rope", "none")),
     ) if bad]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (this slice "
-            "serves the uniform family; see ROADMAP.md)")
+            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
+            "serves the uniform and rwkv6 families; see ROADMAP.md)")
 
 
 def _layer(blocks: Dict, i: int) -> Dict:
@@ -182,6 +193,18 @@ def ffn_apply(cfg: ArchConfig, p: Dict, x, ctx: ModelCtx, live=None):
     return layers.apply_mlp(cfg, p["mlp"], h), None
 
 
+def _rwkv_forward(cfg, params, h, ctx):
+    for blk in _layers(params, cfg):
+        t_out, _ = ssm.rwkv6_forward(
+            cfg, blk["tmix"], layers.apply_norm(cfg, blk["norm1"], h),
+            use_kernel=ctx.use_kernels)
+        h = h + t_out
+        c_out, _ = ssm.rwkv_cmix_forward(
+            cfg, blk["cmix"], layers.apply_norm(cfg, blk["norm2"], h))
+        h = h + c_out
+    return h
+
+
 def zero_aux(cfg: ArchConfig, device) -> Dict:
     a = {"lb_loss": torch.zeros((), dtype=torch.float32, device=device),
          "z_loss": torch.zeros((), dtype=torch.float32, device=device)}
@@ -214,6 +237,10 @@ def forward_hidden(cfg: ArchConfig, params: Dict, batch: Dict,
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = layers.embed_tokens(params["embed"], tokens)
+    if family(cfg) == "rwkv6":          # attention-free: no KV, no aux
+        h = _rwkv_forward(cfg, params, h, ctx)
+        hidden = layers.apply_norm(cfg, params["final_norm"], h)
+        return hidden, zero_aux(cfg, h.device), None
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     live = None
     if true_len is not None:
@@ -287,9 +314,19 @@ def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> Dict:
     """Decode cache: zeros ``(L, batch, max_len, Hk, D)`` K and V in the
-    model dtype, plus per-row lengths."""
+    model dtype, plus per-row lengths; for rwkv6 the per-layer recurrent
+    ``states`` instead (token-shift rows in the model dtype, the WKV state
+    in float32)."""
     check_ported(cfg)
     dev = resolve_device(device)
+    L = cfg.num_layers
+    if family(cfg) == "rwkv6":
+        one = ssm.init_rwkv6_state(cfg, batch, device=dev)
+        st = {"tmix_last": one["last"].expand(L, -1, -1).clone(),
+              "wkv": one["wkv"].expand(L, -1, -1, -1, -1).clone(),
+              "cmix_last": one["last"].expand(L, -1, -1).clone()}
+        return {"states": st,
+                "len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     dtype = getattr(torch, cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -310,8 +347,12 @@ def init_paged_slots(cfg: ArchConfig, n_slots: int, max_len: int, *,
     hold only block tables.  ``block_table`` is what attention *reads*
     through, ``write_table`` where appends land (entries the slot does not
     own point at the null block 0).  Both start all-null: the serving
-    engine's block-pool machinery fills them at admission."""
+    engine's block-pool machinery fills them at admission.  Uniform family
+    only: rwkv6 keeps no KV to page."""
     check_ported(cfg)
+    if family(cfg) != "uniform":
+        raise ValueError("init_paged_slots is the uniform-family native "
+                         f"path, not {family(cfg)!r}")
     if max_len % block_size:
         raise ValueError(f"max_len={max_len} not a multiple of "
                          f"block_size={block_size}")
@@ -373,19 +414,51 @@ def _uniform_prefill_slot_paged(cfg, params, cache, tokens, true_len: int,
     return logits[0, true_len - 1], cache
 
 
+def _rwkv_prefill_slot(cfg, params, cache, tokens, true_len: int,
+                       slot: int, ctx):
+    """The prompt through every layer from zero states, pads frozen past
+    ``true_len``; each layer's final WKV state and shift rows land in the
+    slot's row of ``cache["states"]``."""
+    h = layers.embed_tokens(params["embed"], tokens)
+    per_layer = []
+    for blk in _layers(params, cfg):
+        xn = layers.apply_norm(cfg, blk["norm1"], h)
+        t_out, tstate = ssm.rwkv6_forward(cfg, blk["tmix"], xn,
+                                          true_len=true_len,
+                                          use_kernel=ctx.use_kernels)
+        h = h + t_out
+        xn2 = layers.apply_norm(cfg, blk["norm2"], h)
+        c_out, clast = ssm.rwkv_cmix_forward(cfg, blk["cmix"], xn2,
+                                             true_len=true_len)
+        h = h + c_out
+        per_layer.append({"tmix_last": tstate["last"], "wkv": tstate["wkv"],
+                          "cmix_last": clast})
+    states = {k: torch.stack([st[k] for st in per_layer])
+              for k in per_layer[0]}
+    h = layers.apply_norm(cfg, params["final_norm"], h)
+    logits = layers.lm_logits(cfg, params, h)
+    ssm.scatter_slot_state(cache["states"], states, slot, batch_axis=1)
+    cache["len"][slot] = true_len
+    return logits[0, true_len - 1], cache
+
+
 def prefill_into_slot(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
                       true_len: int, slot: int, ctx: ModelCtx = ModelCtx(),
                       chunk: int = 0):
     """Write one request's prompt K/V into slot ``slot`` of a state built by
     :func:`init_slots` (rows [0, S_pad)) or :func:`init_paged_slots`
     (through the write table), in place, and return (last-position logits
-    (V,), the state).  ``tokens`` (1, S_pad) may be right-padded;
-    ``true_len`` marks the real prompt end (pad rows are dead by the slot
-    length)."""
+    (V,), the state); for rwkv6, the request's recurrent states.
+    ``tokens`` (1, S_pad) may be right-padded; ``true_len`` marks the real
+    prompt end (pad rows are dead by the slot length; rwkv6 freezes its
+    recurrence over them)."""
     check_ported(cfg)
     if chunk > 0:
         raise NotImplementedError("streaming (chunked) prefill is not "
                                   "ported yet (ROADMAP.md)")
+    if family(cfg) == "rwkv6":
+        return _rwkv_prefill_slot(cfg, params, cache, tokens, true_len, slot,
+                                  ctx)
     if "block_table" in cache:
         return _uniform_prefill_slot_paged(cfg, params, cache, tokens,
                                            true_len, slot, ctx)
@@ -412,13 +485,37 @@ def _uniform_decode_paged(cfg, params, h, position, ctx, cache):
     return h, dict(cache, len=cache["len"] + 1)
 
 
+def _rwkv_decode(cfg, params, h, ctx, cache):
+    """One token through every layer: each layer's states are read from
+    ``cache["states"]`` and the new ones written back in place; the block
+    tables of a paged state (rwkv6 pages nothing) ride along."""
+    st = cache["states"]
+    for i, blk in enumerate(_layers(params, cfg)):
+        xn = layers.apply_norm(cfg, blk["norm1"], h)
+        t_out, tstate = ssm.rwkv6_forward(
+            cfg, blk["tmix"], xn, state={"last": st["tmix_last"][i],
+                                         "wkv": st["wkv"][i]})
+        h = h + t_out
+        xn2 = layers.apply_norm(cfg, blk["norm2"], h)
+        c_out, _ = ssm.rwkv_cmix_forward(cfg, blk["cmix"], xn2,
+                                         state=st["cmix_last"][i])
+        h = h + c_out
+        st["tmix_last"][i] = xn[:, -1]
+        st["wkv"][i] = tstate["wkv"]
+        st["cmix_last"][i] = xn2[:, -1]
+    return h, dict(cache, len=cache["len"] + 1)
+
+
 def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
                 ctx: ModelCtx = ModelCtx()):
     """One decode step.  tokens (B,1) -> (logits (B,1,V), new state)."""
     check_ported(cfg)
     h = layers.embed_tokens(params["embed"], tokens)
-    decode = (_uniform_decode_paged if "block_table" in cache
-              else _uniform_decode)
-    h, cache = decode(cfg, params, h, cache["len"], ctx, cache)
+    if family(cfg) == "rwkv6":
+        h, cache = _rwkv_decode(cfg, params, h, ctx, cache)
+    else:
+        decode = (_uniform_decode_paged if "block_table" in cache
+                  else _uniform_decode)
+        h, cache = decode(cfg, params, h, cache["len"], ctx, cache)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return layers.lm_logits(cfg, params, h), cache

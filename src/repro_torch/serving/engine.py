@@ -1,5 +1,5 @@
 """Fixed-slot continuous-batching serving engine (port of
-``repro/serving/engine.py``, the greedy uniform-family slice).
+``repro/serving/engine.py``, the greedy uniform-family and rwkv6 slices).
 
 The decode batch has a fixed shape of ``n_slots`` cache rows, each slot
 holds one request, and per-slot lengths (``cache["len"]``) track each row's
@@ -14,23 +14,28 @@ call advances it by its measured wall time (the GPU synchronised first, so
 the clock times the work and not only its launch) or by a pinned per-call
 cost, and idle waits jump to the next arrival.
 
-The cache layout (:class:`~repro_torch.cache_layout.CacheLayout`) picks the
-backend: dense 16-bit (:class:`NativeBackend`), dense int8
-(:class:`Int8KVBackend`), paged 16-bit (:class:`PagedNativeBackend`) or
-paged int8 (:class:`PagedInt8Backend`).  With a paged backend the engine
-owns the host-side block accounting: a
+The cache layout (:class:`~repro_torch.cache_layout.CacheLayout`) and the
+model's family pick the backend: for the uniform family dense 16-bit
+(:class:`NativeBackend`), dense int8 (:class:`Int8KVBackend`), paged 16-bit
+(:class:`PagedNativeBackend`) or paged int8 (:class:`PagedInt8Backend`);
+for rwkv6, whose recurrent state carries no KV, :class:`NativeBackend`
+dense and :class:`PagedSlots` paged (block tables and no pool: the JAX
+package's generic paged composition, which pages zero leaves of that
+family), and int8 raises ``ValueError`` as in the JAX package.  With a
+paged backend the engine owns the host-side block accounting: a
 :class:`~repro_torch.serving.block_pool.BlockPool` and
 :class:`~repro_torch.serving.block_pool.SlotTables` pair whose tables it
 uploads whenever they change, prefix-sharing admission keyed by
 :func:`~repro_torch.serving.block_pool.prefix_keys`, the copy-on-write walk
 before each decode step, and queue-head pushback when the pool is full.
 
-This slice serves greedy decode with one token per step.  Everything else
+This port serves greedy decode with one token per step.  Everything else
 raises ``NotImplementedError`` rather than being ignored: sampled requests
-(``temperature > 0``), the generic int8 and paged compositions (other
-families, streaming prefill), ``spec_k > 1``, ``prefill_chunk > 0``, a CF
-head, tracer/metrics registries, and prefill/decode engine roles
-(``ROADMAP.md`` queues them).
+(``temperature > 0``), the generic int8 composition and the paged one over
+KV leaves (other families, streaming prefill), ``spec_k > 1`` (a
+recurrent family raises the reference's ``ValueError``),
+``prefill_chunk > 0``, a CF head, tracer/metrics registries, and
+prefill/decode engine roles (``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
@@ -66,6 +71,11 @@ class EngineConfig:
     prefill_chunk: int = 0              # uniform streaming prefill chunk
     spec_k: int = 1                     # speculative decode rows per step
     spec_draft: str = "ngram"           # self-speculative draft source
+
+
+# Ported families whose slot state holds no KV rows (rwkv6: int8 KV does
+# not apply, and a paged layout pages nothing).
+NO_KV_FAMILIES = frozenset({"rwkv6"})
 
 
 def _bucket(n: int, quantum: int, cap: int) -> int:
@@ -122,6 +132,7 @@ class SlotBackend:
     def __init__(self, cfg, params, ctx: Optional[tf.ModelCtx] = None,
                  decode_impl: Optional[str] = None, device=None):
         tf.check_ported(cfg)
+        self.family = tf.family(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -290,21 +301,65 @@ class PagedInt8Backend(_PagedBackendMixin, SlotBackend):
         return logits[0, true_len - 1], cache
 
 
+class PagedSlots(_PagedBackendMixin, SlotBackend):
+    """The generic paged composition for a family whose slot state pages
+    nothing (rwkv6: its WKV and shift rows are O(1) per slot): the inner
+    backend's state plus block tables and no pool, so the engine's block
+    accounting, prefix-sharing admission and copy-on-write walk run as for
+    any paged layout, and every model call is the inner backend's (the JAX
+    ``PagedSlots``'s gather and repool are the identity there).  The
+    composition over KV leaves (gemma, jamba, whisper) is not ported."""
+
+    def __init__(self, inner: SlotBackend, layout: CacheLayout):
+        if inner.family not in NO_KV_FAMILIES:
+            raise _not_ported(f"the paged composition over the KV leaves of "
+                              f"family {inner.family!r}")
+        self.inner = inner
+        self.layout = layout
+        super().__init__(inner.cfg, inner.params, inner.ctx,
+                         device=inner.device)
+
+    def init_slots(self, n_slots: int, max_len: int) -> Dict:
+        state = self.inner.init_slots(n_slots, max_len)
+        tbl = torch.zeros((n_slots, blocks_per_slot(self.layout, max_len)),
+                          dtype=torch.int32, device=self.device)
+        state["block_table"] = tbl
+        state["write_table"] = tbl.clone()
+        return state
+
+    def _decode_impl(self, params, cache, tokens):
+        return self.inner._decode_impl(params, cache, tokens)
+
+    def _prefill_impl(self, params, cache, tokens, true_len, slot):
+        return self.inner._prefill_impl(params, cache, tokens, true_len, slot)
+
+
 def make_backend(cfg, params, ctx: Optional[tf.ModelCtx] = None,
                  prefill_chunk: int = 0, *,
                  layout: Optional[CacheLayout] = None, device=None):
-    """Backend for ``layout``: dense 16-bit -> :class:`NativeBackend`,
-    dense int8 -> :class:`Int8KVBackend`, paged 16-bit ->
-    :class:`PagedNativeBackend`, paged int8 -> :class:`PagedInt8Backend`.
-    ``layout.impl`` overrides the decode-attention path of ``ctx`` only
-    when a layout was passed explicitly (the paged backends always take
-    it), as in the JAX package.  Streaming prefill with an int8 or paged
-    layout needs the JAX package's generic compositions, which are not
-    ported yet."""
+    """Backend for ``layout`` and the model's family.  Uniform: dense
+    16-bit -> :class:`NativeBackend`, dense int8 -> :class:`Int8KVBackend`,
+    paged 16-bit -> :class:`PagedNativeBackend`, paged int8 ->
+    :class:`PagedInt8Backend`.  rwkv6: dense -> :class:`NativeBackend`,
+    paged -> :class:`PagedSlots` over it, int8 -> ``ValueError`` (no KV
+    to quantize).  ``layout.impl`` overrides the decode-attention path of
+    ``ctx`` only when a layout was passed explicitly (the paged backends
+    always take it), as in the JAX package.  Streaming prefill with an int8
+    or paged layout needs the JAX package's generic compositions, which are
+    not ported yet."""
     explicit = layout is not None
     if layout is None:
         layout = CacheLayout()
+    tf.check_ported(cfg)
+    fam = tf.family(cfg)
+    if layout.quantized and fam in NO_KV_FAMILIES:
+        raise ValueError(
+            f"family {fam!r} carries no KV cache; int8 KV does not "
+            f"apply (its recurrent state is O(1) per slot already)")
     impl = layout.impl if explicit else None
+    if fam == "rwkv6" and layout.paged and not prefill_chunk:
+        return PagedSlots(NativeBackend(cfg, params, ctx, impl,
+                                        device=device), layout)
     if not layout.paged and not layout.quantized:
         return NativeBackend(cfg, params, ctx, impl, prefill_chunk,
                              device=device)
@@ -340,6 +395,13 @@ class ServingEngine:
         if cf_head is not None:
             raise _not_ported("the CF head")
         if ecfg.spec_k > 1:
+            fam = backend.family
+            if fam not in tf.SPEC_FAMILIES:
+                raise ValueError(
+                    f"speculative decode (spec_k={ecfg.spec_k}) needs a "
+                    f"pure-KV cache family {tf.SPEC_FAMILIES}; {fam!r} "
+                    "carries recurrent per-token state that cannot rewind "
+                    "a rejected draft — serve it with spec_k=1")
             raise _not_ported("speculative decode (spec_k > 1)")
         if ecfg.prefill_chunk:
             raise _not_ported("streaming (chunked) prefill")

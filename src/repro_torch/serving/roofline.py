@@ -29,22 +29,30 @@ def _kv_pos_bytes(head_dim: int, n_kv: int, kv_bits: int) -> float:
 def decode_state_bytes(cfg: ArchConfig, cache_len: int,
                        kv_bits: int = 16) -> float:
     """Resident decode-state bytes for ONE slot at ``cache_len`` positions.
-    The port serves attention layers only (the uniform family); other
-    layer kinds raise until their families are ported."""
-    kinds = cfg.layer_kinds()
-    if set(kinds) != {"attn"}:
-        raise NotImplementedError(
-            f"decode-state bytes of {sorted(set(kinds) - {'attn'})} layers "
-            "are not ported yet (ROADMAP.md)")
-    return len(kinds) * cache_len * _kv_pos_bytes(cfg.head_dim,
-                                                  cfg.num_kv_heads, kv_bits)
+    The port serves attention layers (the uniform family) and rwkv6
+    layers; other layer kinds raise until their families are ported."""
+    dt = 2                               # model dtype (bf16) itemsize
+    kv_pos = _kv_pos_bytes(cfg.head_dim, cfg.num_kv_heads, kv_bits)
+    total = 0.0
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            total += cache_len * kv_pos
+        elif kind == "rwkv6":
+            hs = cfg.rwkv_head_size
+            total += (cfg.d_model // hs) * hs * hs * 4      # f32 wkv state
+            total += 2 * cfg.d_model * dt                   # shift states
+        else:
+            raise NotImplementedError(
+                f"decode-state bytes of {kind!r} layers are not ported yet "
+                "(ROADMAP.md)")
+    return total
 
 
 def _paged_split_bytes(cfg: ArchConfig, max_len: int, kv_bits: int):
     """(bytes per pooled KV *position*, per-slot bytes of state that stays
     slot-resident under the paged layout).  Only full-cache self-attention
-    rows page (the JAX package keeps window-bounded rings and cross-KV
-    slot-resident; the ported uniform family has neither)."""
+    rows page (the JAX package keeps window-bounded rings, recurrent rows
+    and cross-KV slot-resident; of these the port has rwkv6's rows)."""
     kv_pos = _kv_pos_bytes(cfg.head_dim, cfg.num_kv_heads, kv_bits)
     n_full_attn = sum(1 for kind in cfg.layer_kinds() if kind == "attn")
     paged_pos = n_full_attn * kv_pos

@@ -44,8 +44,8 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-# every module of the serving, training, sparse-embedding and MoE slices, so
-# the walks below cannot go vacuous
+# every module of the serving, training, sparse-embedding, MoE and rwkv6
+# slices, so the walks below cannot go vacuous
 SLICE_MODULES = (
     "cache_layout.py", "convert.py", "kernels/_build.py",
     "kernels/decode_attention.py", "kernels/flash_attention.py",
@@ -61,6 +61,7 @@ SLICE_MODULES = (
     "kernels/fused_adamw.py", "embeddings/update.py",
     "embeddings/__init__.py", "kernels/moe_router.py", "models/moe.py",
     "configs/moonshot_v1_16b_a3b.py", "configs/qwen3_moe_30b_a3b.py",
+    "kernels/wkv6.py", "models/ssm.py", "configs/rwkv6_1_6b.py",
 )
 
 

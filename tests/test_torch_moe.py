@@ -10,6 +10,14 @@ TPU kernel's differ by rounding only); ``moe_ffn`` out 1e-5, lb/z losses
 1e-6, expert loads equal; logits 1e-4 (summation order over the stack);
 greedy streams and scheduler records equal.
 
+The bf16 cases hold the port's rounding to JAX's: ``moe_ffn`` and the
+whole forward in bf16, every element within 2^-8 of the largest |value|
+(about one bf16 ulp there) and at most 0.5% of them differing at all
+(both packages round the same float32 sums once, where JAX rounds; a sum
+taken in another order may round across a boundary, and that one flip
+moves what is computed from it).  JAX runs them op by op: under ``jit``
+XLA's CPU fusions skip some bf16 roundings of the eager program.
+
 The int8 layouts run at ``moe_capacity_factor=8.0``: the JAX package's
 fused int8 prefill (``kvquant.quant_prefill_kv``) routes pad tokens, so at
 a tight capacity its streams depend on the padding; the port masks them
@@ -204,6 +212,95 @@ def test_forward_matches_jax(model, use_kernels):
                                   np.asarray(jaux["expert_load"]))
 
 
+# -- bf16 --------------------------------------------------------------------
+
+class _F32DotJnp:
+    """``jax.numpy`` for the JAX MoE module, but an einsum asked for a
+    float32 result from 16-bit operands takes float32 operands: XLA's CPU
+    runtime cannot run the bf16 x bf16 -> f32 dot it makes of the expert
+    products ("Unsupported element type for DotThunk").  It is the same
+    product: bf16 -> f32 is exact, and so is a bf16 x bf16 product in
+    f32."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def einsum(eq, *operands, preferred_element_type=None, **kw):
+        if preferred_element_type == jnp.float32:
+            operands = [o.astype(jnp.float32) for o in operands]
+        return jnp.einsum(eq, *operands,
+                          preferred_element_type=preferred_element_type,
+                          **kw)
+
+
+@pytest.fixture
+def jax_f32_dots(monkeypatch):
+    monkeypatch.setattr(jmoe, "jnp", _F32DotJnp())
+
+
+BF16_ATOL = 2.0 ** -8         # of the largest |value|: ~ one bf16 ulp there
+BF16_MAX_DIFFERING = 0.005
+
+
+def _assert_bf16_close(got, want):
+    """Every element within ``BF16_ATOL`` of the largest magnitude of JAX's
+    values, and at most ``BF16_MAX_DIFFERING`` of them differing at
+    all."""
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    diff = np.abs(got - want)
+    atol = BF16_ATOL * np.abs(want).max()
+    assert diff.max() <= atol, (
+        f"largest difference {diff.max()} > {atol}")
+    assert (diff > 0).mean() <= BF16_MAX_DIFFERING, (
+        f"{(diff > 0).mean():.1%} of the elements differ from JAX's")
+
+
+@pytest.mark.parametrize("capacity", [1.25, 0.5])
+@pytest.mark.parametrize("arch,E,k", [("moonshot-v1-16b-a3b", 8, 2),
+                                      ("qwen3-moe-30b-a3b", 16, 4)])
+def test_moe_ffn_bf16_matches_jax(jax_f32_dots, arch, E, k, capacity):
+    """bf16 weights and inputs: the gate/up products and the combine keep
+    float32 results, rounded once where JAX rounds (after the activation,
+    after the combine)."""
+    jcfg = dataclasses.replace(jreduced(jget_arch(arch)), num_experts=E,
+                               experts_per_token=k)
+    tcfg = dataclasses.replace(reduced(get_arch(arch)), num_experts=E,
+                               experts_per_token=k)
+    assert jcfg.dtype == tcfg.dtype == "bfloat16"
+    jp = jmoe.init_moe(jax.random.PRNGKey(1), jcfg)
+    tp = _convert(jp)
+    x = np.random.default_rng(4).standard_normal((2, 64, 64)).astype(
+        np.float32)
+    kw = dict(capacity_factor=capacity, group_size=64)
+    jout, jaux = jmoe.moe_ffn(jcfg, jp, jnp.asarray(x, jnp.bfloat16), **kw)
+    tout, taux = tmoe.moe_ffn(tcfg, tp, torch.from_numpy(x).to(
+        torch.bfloat16), **kw)
+    assert tout.dtype == torch.bfloat16
+    _assert_bf16_close(tout, jout)
+    np.testing.assert_array_equal(taux["expert_load"].numpy(),
+                                  np.asarray(jaux["expert_load"]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_bf16_matches_jax(jax_f32_dots, arch):
+    """The reduced arch's whole forward in bf16 (its config's own dtype)
+    against JAX's, run op by op."""
+    jcfg, tcfg = jreduced(jget_arch(arch)), reduced(get_arch(arch))
+    jparams = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = _convert(jparams)
+    toks = np.random.default_rng(6).integers(3, jcfg.vocab_size, (2, 24))
+    with jax.disable_jit():
+        jl, _, _ = jtf.forward(jcfg, jparams,
+                               {"tokens": jnp.asarray(toks, jnp.int32)},
+                               jtf.ModelCtx(attn_chunk=8))
+    tl, _, _ = ttf.forward(tcfg, tparams, {"tokens": torch.from_numpy(toks)},
+                           ttf.ModelCtx(attn_chunk=8))
+    assert tl.dtype == torch.bfloat16
+    _assert_bf16_close(tl, jl)
+
+
 # -- serving -----------------------------------------------------------------
 
 def _same(a, b):
@@ -332,10 +429,10 @@ def test_launcher_serves_a_reduced_moe_arch_on_the_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "moonshot-v1-16b-a3b", "--reduced", "--device", "cpu",
-         "--moe-kernel", "--requests", "4", "--no-warmup"],
+         "--kernels", "--requests", "4", "--no-warmup"],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "moe_kernel=True" in out.stdout
+    assert "kernels=True" in out.stdout
     assert "4/4 requests" in out.stdout
 
 
