@@ -8,27 +8,35 @@ the port's kernels from ``src/repro_torch/kernels/csrc`` first.  Phases, each
 failing the run with a non-zero exit when its check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, the kernels' build time and ptxas resource report;
+   versions, the kernels' build time and ptxas resource report (the bf16
+   prefill attention and the scatter kernels must not spill);
 2. kernels against their plain PyTorch versions on the card: every case of
    ``tests/test_torch_kernels.py`` (flash-attention, and flash-decode over
-   the dense, int8, paged and paged int8 caches) plus RecLLM-base's serving
-   shapes, in float32 (tolerance 1e-4) and bfloat16 (2e-2, absolute); a
-   paged-kernel run with the null block and every unmapped block filled
-   with NaN, which must give the same output (no dead table entry is
-   read); and at the serving shapes the time of the kernel, of the plain
-   version and, where one exists, of one PyTorch call computing the same
-   function (``scaled_dot_product_attention`` with the equivalent boolean
-   mask, a yardstick the port never calls), plus for the paged kernels the
-   dense kernel on the equivalent dense cache.  The gradient-compression
-   kernels (onebit quantize and dequantize, top-k sparsify) likewise, on
-   test sizes, tied values and the training phase's full flat gradient:
-   bytes, kept values and residuals exact, scales within 1e-6 relative;
-   timed beside their plain versions (no PyTorch call computes them).
+   the dense, int8, paged and paged int8 caches), prefill cases across
+   several 64-key tiles (S up to 333, D 64 and 128, GQA 4:1 and 8:1, a
+   window across tile edges, causal off, Sq < Sk) plus RecLLM-base's
+   serving shapes, in float32 (tolerance 1e-4) and bfloat16 (2e-2,
+   absolute); a paged-kernel run with the null block and every unmapped
+   block filled with NaN, which must give the same output (no dead table
+   entry is read); and at the serving shapes the time of the kernel, of
+   the plain version and, where one exists, of one PyTorch call computing
+   the same function (``scaled_dot_product_attention`` with the
+   equivalent boolean mask, a yardstick the port never calls), plus for
+   the paged kernels the dense kernel on the equivalent dense cache;
+   whether the redesigned prefill and scatter kernels are at or below
+   their PyTorch calls is printed as a ``[gate ...]`` line, reported and
+   not enforced.  The gradient-compression kernels (onebit quantize and
+   dequantize, top-k sparsify) likewise, on test sizes, tied values and
+   the training phase's full flat gradient: bytes, kept values and
+   residuals exact, scales within 1e-6 relative; timed beside their plain
+   versions (no PyTorch call computes them).
    The sparse-embedding kernels and the fused AdamW kernel likewise:
    gather_rows exactly in f32 and bf16 at the CPU tests' sizes and on the
    training path's (192,403, 64) table (and ``dedup_lookup(use_kernel=
-   True)``); scatter_add_rows with heavy duplicates, the sentinel dump row
-   and the path's shape within 1e-6 relative (bit-equality reported);
+   True)``); scatter_add_rows bit-equal (``torch.equal``) with heavy
+   duplicates, more ids than a staged chunk, D = 6, no ids, ids on both
+   sides of a slab border, the sentinel dump row (and every id on it) and
+   the path's shape, where one call must run one CUDA kernel;
    adamw_update at N = 16,384 to 48,414,720, 17,408 (a shape the TPU
    kernel's tiling rejects) and cf_item's 4,034,560 within 1e-6 + 1e-5
    relative; timed at the path's shapes beside ``index_select``,
@@ -120,6 +128,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -135,6 +144,18 @@ F32_TOL, BF16_TOL = 1e-4, 2e-2
 PREFILL_CASES = [  # (B, H, Hk, S, causal, window)
     (1, 2, 2, 40, True, 0), (2, 4, 1, 40, True, 8), (1, 4, 1, 33, True, 0),
     (1, 2, 2, 24, False, 0), (1, 4, 2, 37, False, 5),
+]
+# prefill across several 64-key tiles of the bf16 kernel, ragged edges:
+# (B, H, Hk, Sq, Sk, D, causal, window)
+PREFILL_TILED_CASES = [
+    (1, 4, 1, 64, 64, 64, True, 0),        # one whole tile, GQA 4:1
+    (1, 8, 1, 65, 65, 128, True, 0),       # one key past it, GQA 8:1
+    (2, 4, 4, 200, 200, 64, True, 0),      # the serve prompt, 4 tiles
+    (1, 4, 2, 333, 333, 64, True, 100),    # a window across tile edges
+    (1, 8, 1, 333, 333, 128, False, 0),    # causal off, GQA 8:1
+    (1, 4, 1, 65, 200, 64, False, 0),      # Sq < Sk
+    (1, 4, 2, 100, 333, 128, True, 70),    # Sq < Sk, causal and window
+    (1, 2, 2, 200, 200, 32, False, 37),    # a window alone, D = 32
 ]
 DECODE_CASES = [  # (B, Sq, H, Hk, S, lengths, q_lens, window, ring)
     (4, 1, 2, 2, 40, [0, 1, 40, 17], None, 0, False),
@@ -165,6 +186,9 @@ DECODE_MAIN = dict(B=8, S=512, H=12, Hk=12, D=64,
                    lengths=[1, 37, 64, 100, 200, 300, 450, 512])
 BLOCK_MAIN = 16                    # paged: rows per block (pool 8*32 + 1)
 PREFILL_MAIN = [dict(B=1, H=12, S=s, D=64) for s in (24, 200)]
+# the per-row kernel's 0.0099 ms at S = 24, which the tile kernel replaced,
+# + 10%
+PREFILL_GATE_MS = {24: 0.0109}
 
 # name -> (port source, TPU kernel it replaces, launch counter owner)
 KERNELS = {
@@ -209,6 +233,10 @@ NO_LIBRARY = {
                      "distinct magnitude",
     "wkv6_chunked": "no PyTorch call computes the WKV6 recurrence",
 }
+
+
+# kernels that must build without register spills (ptxas -v)
+NO_SPILLS = ("flash_attention_mma_kernel", "scatter_add_rows_kernel")
 
 
 class SmokeFailure(Exception):
@@ -275,10 +303,18 @@ def phase_device(torch):
     build_s = time.perf_counter() - t0
     print(f"[build] {len(_build.SOURCES)} sources with nvcc in "
           f"{build_s:.1f} s")
+    spills = []
     for name, log in sorted(_build.ptxas_log.items()):
+        fn = ""                      # the mangled kernel the lines are of
         for line in log.splitlines():
+            found = re.search(r"Function properties for (\S+)", line)
+            fn = found.group(1) if found else fn
             if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+                print(f"[ptxas {name}] {fn[:60]}: {line.strip()}")
+            if (any(k in fn for k in NO_SPILLS)
+                    and re.search(r"[1-9]\d* bytes spill", line)):
+                spills.append(f"{fn}: {line.strip()}")
+    check(not spills, f"register spills: {spills}")
     return {"card": card, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s}
 
@@ -349,6 +385,16 @@ def _spin_ms(torch):
     return start.elapsed_time(end)
 
 
+def report_gate(what, ms, library_ms, library, limit_ms=None):
+    """Print whether a redesigned kernel is at or below its PyTorch call
+    (and ``limit_ms``) in this run.  Reported, not enforced: a time is
+    not a correctness check, and the host's noise would make it flaky."""
+    ok = ms <= library_ms and (limit_ms is None or ms <= limit_ms)
+    print(f"[gate {what}] kernel {ms:.4f} ms against {library} "
+          f"{library_ms:.4f} ms" + (f" and {limit_ms} ms" if limit_ms else "")
+          + (": met" if ok else ": MISSED"))
+
+
 def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -397,9 +443,10 @@ class Inputs:
             return None
         return self.torch.tensor(xs, dtype=self.torch.int32, device=self.dev)
 
-    def prefill(self, B, H, Hk, S, D, causal, window, dtype):
+    def prefill(self, B, H, Hk, S, D, causal, window, dtype, Sk=None):
         from repro_torch.kernels import ops, ref
-        q, k, v = (self.randn(B, n, S, D, dtype=dtype) for n in (H, Hk, Hk))
+        q = self.randn(B, H, S, D, dtype=dtype)
+        k, v = (self.randn(B, Hk, Sk or S, D, dtype=dtype) for _ in "kv")
         kw = dict(causal=causal, window=window)
         return (ops.flash_attention_bhsd, ref.flash_attention, (q, k, v), kw)
 
@@ -463,7 +510,9 @@ def _case_builders(inp):
     return {
         "flash_attention": [
             (c, lambda dt, c=c: inp.prefill(*c[:4], D, *c[4:], dt))
-            for c in PREFILL_CASES],
+            for c in PREFILL_CASES] + [
+            (c, lambda dt, c=c: inp.prefill(*c[:4], *c[5:], dt, Sk=c[4]))
+            for c in PREFILL_TILED_CASES],
         "flash_decode": [
             (c, lambda dt, c=c: inp.decode(*c[:5], D, *c[5:], dt))
             for c in DECODE_CASES],
@@ -634,6 +683,10 @@ def phase_kernels(torch):
              "bytes_ms": 4 * n * 2 / HBM_BYTES_PER_S * 1e3,
              "ops_ms": pflops / BF16_FLOPS_PER_S * 1e3}
         report["timing"]["flash_attention"].append(t)
+    for t, pm in zip(report["timing"]["flash_attention"], PREFILL_MAIN):
+        report_gate(f"flash_attention S={pm['S']}", t["ms"],
+                    t["library_ms"], "sdpa with the causal mask",
+                    PREFILL_GATE_MS.get(pm["S"]))
     for name, rows in report["timing"].items():
         for t in rows:
             t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
@@ -779,7 +832,8 @@ def first_logits(torch, tf, cfg, params, ctx, prompt, ecfg, nxt_token=None):
     return row, step
 
 
-ATTN_TAGS = {"flash_attention": "flash_attention_kernel",
+# flash_attention_rows_kernel (f32) and flash_attention_mma_kernel (bf16)
+ATTN_TAGS = {"flash_attention": "flash_attention_",
              "decode": "flash_decode_kernel"}
 
 
@@ -1323,8 +1377,10 @@ def phase_compress_kernels(torch, report):
 # and bf16, plus a 3-wide bf16 row (6 bytes: the byte-wise copy);
 # scatter (n, dim, n_rows)
 GATHER_CASES = [(64, 16, 40), (128, 32, 48), (16, 8, 12), (100, 3, 7)]
-SCATTER_CASES = [(24, 16, 8), (48, 32, 64), (1000, 64, 5)]
-SCATTER_RTOL = 1e-6      # tests/test_embeddings.py's; expected exact
+SCATTER_CASES = [(24, 16, 8), (48, 32, 64), (1000, 64, 5),
+                 (5000, 16, 7),     # more ids than one staged chunk (256)
+                 (300, 6, 1000),    # D = 6: rows straddle the 4096-float slabs
+                 (0, 64, 40)]       # no ids: zeros
 # fused AdamW: tests/test_kernels.py's sizes, the shape the Pallas
 # kernel's tiling rejects, cf_item and embed at full width
 ADAMW_NS = [8 * 2048, 8 * 4096, 17_408, 4_034_560, 48_414_720]
@@ -1381,30 +1437,47 @@ def phase_embed_kernels(torch, report):
                       table[users.long()].reshape(4, -1, 64)),
           "dedup_lookup(use_kernel=True) differs from the direct gather")
 
-    # scatter: heavy duplicates, the sentinel dump row, the path's shape
+    # scatter, bit-equal to the plain version: heavy duplicates, more ids
+    # than a chunk, D = 6, no ids, ids on both sides of a slab border, the
+    # sentinel dump row, the path's shape
+    scatter_errs = []
+
     def scatter_case(x, idx, n_rows, what):
         got = eo.scatter_add_rows(x, idx, n_rows)
         want = ref.scatter_add_rows(x, idx, n_rows)
-        err = float((got - want).abs().max())
-        rel = err / max(float(want.abs().max()), 1e-30)
-        check(rel <= SCATTER_RTOL, f"scatter_add_rows {what}: {rel} "
-              f"relative from the plain version > {SCATTER_RTOL}")
-        return err, bool(torch.equal(got, want))
+        err = float((got - want).abs().max()) if want.numel() else 0.0
+        check(bool(torch.equal(got, want)), f"scatter_add_rows {what}: "
+              f"differs from the plain version (max abs {err})")
+        scatter_errs.append(err)
+        return err
 
-    exact = []
     for n, dim, n_rows in SCATTER_CASES:
-        exact.append(scatter_case(inp.randn(n, dim, dtype=torch.float32),
-                                  ids(n, n_rows), n_rows,
-                                  f"({n}, {dim}) -> {n_rows}")[1])
+        scatter_case(inp.randn(n, dim, dtype=torch.float32), ids(n, n_rows),
+                     n_rows, f"({n}, {dim}) -> {n_rows}")
+    # a slab holds 4096 floats: rows 63 | 64 at D = 64; rows 682 and 1365
+    # split between two slabs at D = 6; each id three times, out of order
+    for dim, n_rows, border in (
+            (64, 200, [62, 63, 64, 65, 127, 128, 0, 199]),
+            (6, 1400, [681, 682, 683, 1364, 1365, 1366, 0, 1399])):
+        edge = inp.ints(border * 3)
+        scatter_case(inp.randn(edge.shape[0], dim, dtype=torch.float32),
+                     edge, n_rows, f"D={dim} across slab borders")
     sent = ids(10, 10)
     sent[::3] = 9                          # the dump row of a 9-row table
-    exact.append(scatter_case(inp.randn(10, 16, dtype=torch.float32), sent,
-                              10, "onto the dump row")[1])
+    scatter_case(inp.randn(10, 16, dtype=torch.float32), sent, 10,
+                 "onto the dump row")
+    scatter_case(inp.randn(300, 64, dtype=torch.float32),
+                 torch.full((300,), 40, dtype=torch.int32, device=dev), 41,
+                 "every id on the dump row")
     sidx = torch.clamp(u, max=n_users)     # scatter_rows' ids
     srows = inp.randn(u.shape[0], 64, dtype=torch.float32)
-    scat_err, scat_exact = scatter_case(srows, sidx, n_users + 1,
-                                        "at the path's shape")
-    exact.append(scat_exact)
+    scat_err = scatter_case(srows, sidx, n_users + 1, "at the path's shape")
+    # one call, one CUDA kernel (no sort, no separate zero-fill)
+    scat_kernels = _device_time(
+        torch, lambda: eo.scatter_add_rows(srows, sidx, n_users + 1))
+    check(sum(c for _, c in scat_kernels.values()) == 1,
+          f"scatter_add_rows at the path's shape ran {scat_kernels}, want "
+          "one kernel")
 
     # fused AdamW after 3 steps of bias correction; lr and the
     # corrections as device scalars, as the optimizer passes them
@@ -1427,9 +1500,9 @@ def phase_embed_kernels(torch, report):
     print(f"[kernels] embedding: {2 * len(GATHER_CASES) + 1} gather cases "
           f"(f32, bf16, the path's ({n_users:,}, 64) f32) and the kernel "
           f"dedup lookup equal the plain versions; "
-          f"{len(SCATTER_CASES) + 2} scatter cases within {SCATTER_RTOL} "
-          f"relative ({sum(exact)} of {len(exact)} bit-equal); adamw_update "
-          f"at N in {ADAMW_NS} within atol {ADAMW_ATOL} + rtol {ADAMW_RTOL} "
+          f"{len(scatter_errs)} scatter cases bit-equal, one CUDA kernel a "
+          f"call; adamw_update at N in {ADAMW_NS} within atol "
+          f"{ADAMW_ATOL} + rtol {ADAMW_RTOL} "
           f"(max abs " + ", ".join(f"{e:.3g}" for e in adamw_errs.values())
           + ")")
 
@@ -1466,9 +1539,9 @@ def phase_embed_kernels(torch, report):
             lambda: ref.scatter_add_rows(srows, sidx, n_users + 1),
             lambda: torch.zeros((n_users + 1, D), device=dev).index_add_(
                 0, sidx_long, srows),
-            4 * (n * D + (n_users + 1) * D), n * D, scat_err, SCATTER_RTOL,
+            4 * (n * D + (n_users + 1) * D), n * D, scat_err, 0.0,
             f"({n}, {D}) f32 rows -> ({n_users + 1:,}, {D}), the dump row "
-            "included; wrapper time (stable sort, zero-fill, segment sums)",
+            "included; wrapper time (one kernel: slab sums and the write)",
             None),
         "adamw_update": (
             lambda: fa.adamw_update(p_, g_, m_, v_, hyper),
@@ -1493,12 +1566,14 @@ def phase_embed_kernels(torch, report):
         t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations")
         report["timing"][name] = [t]
+        if name == "scatter_add_rows":
+            report_gate(name, t["ms"], t["library_ms"],
+                        "zero-fill + index_add_")
         lib_s = (f"library {t['library_ms']:.4f} ms"
                  if t["library_ms"] is not None else "no library call")
         print(f"[time {name}] {shape}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, {lib_s}, bound {t['bound_ms']:.3g} "
               f"ms ({t['bound_by']}), max abs err {err:.3g}")
-    report["scatter_exact"] = all(exact)
     return report
 
 

@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "repro_topk_sparsify": ("topk_sparsify", [_P] * 3 + [_L, _I, _I, _P]),
     "repro_gather_rows": ("embedding_ops", [_P] * 3 + [_L] * 3 + [_P]),
     "repro_scatter_add_rows": ("embedding_ops",
-                               [_P] * 4 + [_L, _I, _L, _P]),
+                               [_P] * 3 + [_L, _I, _L, _P]),
     "repro_adamw_update": ("fused_adamw", [_P] * 8 + [_L, _P]),
     "repro_moe_router": ("moe_router", [_P] * 4 + [_L, _I, _I, _P]),
     "repro_wkv6_chunked": ("wkv6", [_P] * 7 + [_I] * 5 + [_P]),

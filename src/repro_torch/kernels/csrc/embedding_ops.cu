@@ -15,25 +15,54 @@
 // is written as zeros rather than read from outside the table.
 //
 // scatter_add_rows: out (n_rows, D) f32 from zeros, out[idx[i]] += x[i],
-// duplicates summed in input order.  The TPU kernel keeps the output in
-// VMEM and adds the rows one after another in a sequential fori_loop; the
-// card has no sequential grid and float atomics would add in a different
-// order on every run.  So the wrapper sorts idx stably (input order kept
-// within each id) and this entry point launches two kernels: a zero-fill
-// of the whole output, then one block per sorted position, of which only
-// each segment's first does work: its threads walk D and add the
-// segment's rows in input order from 0.f, with IEEE adds (__fadd_rn), and
-// write the row once.  The sum is therefore the TPU kernel's, bit for
-// bit.  Bound: bytes, the read of n * D floats plus the write of
-// n_rows * D (the zero-fill of untouched rows dominates for a large table).
+// duplicates summed in input order.  The TPU kernel keeps the whole output
+// in VMEM and adds the rows one after another in a sequential fori_loop;
+// the card has no sequential grid, and float atomics would add in another
+// order on every run.  What bounds it on the H100 is bytes: the output is
+// written whole (n_rows * D floats, 49 MB for the (192,404, 64) cf_user
+// gradient) while x is a few rows, so the function is one zero-fill's
+// worth of stores.  One kernel does it all, in one launch, with no sort:
+// * Slabs.  Each block sums one contiguous flat slab of 4096 floats of
+//   the row-major output in registers: each of its 256 threads owns 16
+//   floats, as 4 float4 spaced 256 float4 apart, so every warp's stores
+//   cover 512 contiguous bytes.  A slab need not hold whole rows (a row
+//   may straddle two slabs; each adds its part), so there is no column
+//   band for a wide D.  Block b takes slab n_slabs - 1 - b: the blocks
+//   start in index order, and callers put the sentinel dump row last
+//   (embeddings/update.scatter_rows pads with n_rows), so the slab with
+//   the most hits starts first instead of stretching the tail.
+// * Walk the ids.  The block takes idx in input order, 256 ids a chunk;
+//   each thread tests one id against the slab's rows, and one barrier
+//   (__syncthreads_or) tells whether any lands there: at the training
+//   path's 32 ids nearly every slab stops at that and goes straight to
+//   its stores.  Where some do, a ballot and a prefix over the warps'
+//   counts compact the chunk's hits into shared memory in input order.
+// * Stage, then add in order.  The hits' parts of x inside the slab are
+//   copied into shared memory by all threads at once, up to 4096 floats
+//   a group, so their loads overlap; then every thread walks the group's
+//   hits in input order and adds the staged values to the floats it owns
+//   with IEEE adds (__fadd_rn) from 0.f.  Each output float is one
+//   thread's sequential sum in input order, the TPU kernel's loop
+//   restricted to the slab: its result bit for bit.  Ids outside [0,
+//   n_rows) never land in a slab and are skipped.
+//   (Loaded inside the walk instead, each hit's x load would wait on the
+//   previous add: at the training path's shape, 16 of whose 32 ids are
+//   the sentinel, that chain alone outlasts the other slabs' stores.)
+// * Write once.  A slab is stored once with 16-byte stores (the output
+//   base must be 16-byte aligned; the wrapper allocates it), scalar
+//   stores only for the last slab's tail: the zero-fill and the sums share
+//   the single write.  x is read once, idx once a block (~3,000 blocks x
+//   128 bytes from L2 at the path's shape, next to 49 MB).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro_torch {
 
 constexpr int GR_WARPS = 8;          // rows per 256-thread block
-constexpr int SA_THREADS = 128;      // threads over D per segment
-constexpr int ZF_THREADS = 256;
+constexpr int SA_THREADS = 256;      // threads a slab
+constexpr int SA_VECS = 4;           // float4 a thread
+constexpr int SA_SLAB = SA_THREADS * SA_VECS * 4;   // floats a slab
+constexpr int SA_STAGE = 4096;       // floats of x staged a group of hits
 
 template <typename V>
 __global__ void __launch_bounds__(GR_WARPS * 32) gather_rows_kernel(
@@ -62,31 +91,85 @@ static void launch_gather(const void* table, const void* ids, void* out,
       static_cast<V*>(out), n, v_rows, row_bytes / (long long)sizeof(V));
 }
 
-__global__ void __launch_bounds__(ZF_THREADS) zero_fill_kernel(
-    float4* __restrict__ out4, long long n4, float* __restrict__ out,
-    long long count) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = t; i < n4; i += stride)
-    out4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (long long i = 4 * n4 + t; i < count; i += stride) out[i] = 0.f;
-}
+__global__ void __launch_bounds__(SA_THREADS) scatter_add_rows_kernel(
+    const float* __restrict__ x, const int* __restrict__ idx,
+    float* __restrict__ out, long long n, int D, long long count) {
+  // a chunk's hits in input order: [lo, hi) of the slab (slab-relative
+  // floats) and where their values start in x
+  __shared__ int hit_lo[SA_THREADS], hit_hi[SA_THREADS];
+  __shared__ long long hit_x[SA_THREADS];
+  __shared__ int warp_hits[SA_THREADS / 32];
+  __shared__ float stage[SA_STAGE];     // the hits' values, a group
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long f0 = (long long)(gridDim.x - 1 - blockIdx.x) * SA_SLAB;
+  const long long f1 = min(f0 + SA_SLAB, count);
+  const long long row_lo = f0 / D, row_hi = (f1 + D - 1) / D;
+  const int W = (int)min((long long)D, (long long)SA_SLAB);  // a hit's part
+  const int G = SA_STAGE / W;                                // hits a group
+  float acc[SA_VECS][4];
+#pragma unroll
+  for (int u = 0; u < SA_VECS; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[u][c] = 0.f;
 
-__global__ void __launch_bounds__(SA_THREADS) segment_sum_kernel(
-    const float* __restrict__ x, const int* __restrict__ sorted_idx,
-    const long long* __restrict__ perm, float* __restrict__ out,
-    long long n, int D, long long n_rows) {
-  const long long i = blockIdx.x;                // sorted position
-  const int row = sorted_idx[i];
-  if (i > 0 && sorted_idx[i - 1] == row) return;  // not its segment's first
-  if (row < 0 || row >= n_rows) return;
-  long long end = i + 1;
-  while (end < n && sorted_idx[end] == row) ++end;
-  for (int d = threadIdx.x; d < D; d += SA_THREADS) {
-    float s = 0.f;
-    for (long long j = i; j < end; ++j)
-      s = __fadd_rn(s, x[perm[j] * D + d]);
-    out[(long long)row * D + d] = s;
+  for (long long base = 0; base < n; base += SA_THREADS) {
+    const long long i = base + tid;
+    const int id = i < n ? idx[i] : -1;
+    const bool hit = id >= row_lo && id < row_hi;
+    if (!__syncthreads_or(hit)) continue;   // no id of the chunk lands here
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_hits[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < SA_THREADS / 32; ++w) {
+      before += w < warp ? warp_hits[w] : 0;
+      total += warp_hits[w];
+    }
+    if (hit) {
+      const int at = before + __popc(ballot & ((1u << lane) - 1u));
+      const long long r0 = (long long)id * D;
+      const long long lo = max(r0, f0);
+      hit_lo[at] = (int)(lo - f0);
+      hit_hi[at] = (int)(min(r0 + D, f1) - f0);
+      hit_x[at] = i * D + (lo - r0);
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < total; j0 += G) {
+      const int gn = min(G, total - j0);
+      // every value of the group's hits into stage[q * W ...] at once
+      for (int k = tid; k < gn * W; k += SA_THREADS) {
+        const int q = j0 + k / W, o = k % W;
+        if (o < hit_hi[q] - hit_lo[q]) stage[k] = x[hit_x[q] + o];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int q = 0; q < gn; ++q) {         // in input order
+        const int lo = hit_lo[j0 + q], hi = hit_hi[j0 + q];
+#pragma unroll
+        for (int u = 0; u < SA_VECS; ++u)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = 4 * (tid + u * SA_THREADS) + c;
+            if (e >= lo && e < hi)
+              acc[u][c] = __fadd_rn(acc[u][c], stage[q * W + e - lo]);
+          }
+      }
+      __syncthreads();   // stage and the hit arrays are reused
+    }
+  }
+
+#pragma unroll
+  for (int u = 0; u < SA_VECS; ++u) {
+    const long long e = f0 + 4LL * (tid + u * SA_THREADS);
+    if (e + 4 <= f1) {
+      *reinterpret_cast<float4*>(out + e) =
+          make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (e + c < f1) out[e + c] = acc[u][c];
+    }
   }
 }
 
@@ -114,29 +197,21 @@ extern "C" int repro_gather_rows(const void* table, const void* ids,
   return (int)cudaGetLastError();
 }
 
-// x (n, D) f32; sorted_idx (n,) int32, the stably sorted target rows, and
-// perm (n,) int64 with sorted_idx[j] == idx[perm[j]] -> out (n_rows, D).
-extern "C" int repro_scatter_add_rows(const void* x, const void* sorted_idx,
-                                      const void* perm, void* out,
-                                      long long n, int D, long long n_rows,
-                                      void* stream) {
+// x (n, D) f32, idx (n,) int32 -> out (n_rows, D) f32, 16-byte aligned.
+extern "C" int repro_scatter_add_rows(const void* x, const void* idx,
+                                      void* out, long long n, int D,
+                                      long long n_rows, void* stream) {
   using namespace repro_torch;
-  if (n < 0 || D <= 0 || n_rows < 0 || n > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
   const long long count = n_rows * (long long)D;
-  if (count > 0) {
-    const long long n4 =
-        reinterpret_cast<uintptr_t>(out) % 16 == 0 ? count / 4 : 0;
-    long long blocks = (count / 4 + ZF_THREADS - 1) / ZF_THREADS;
-    blocks = blocks < 1 ? 1 : (blocks > 8192 ? 8192 : blocks);
-    zero_fill_kernel<<<(unsigned)blocks, ZF_THREADS, 0, s>>>(
-        static_cast<float4*>(out), n4, static_cast<float*>(out), count);
-  }
-  if (n > 0 && count > 0)
-    segment_sum_kernel<<<(unsigned)n, SA_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(sorted_idx),
-        static_cast<const long long*>(perm), static_cast<float*>(out), n, D,
-        n_rows);
+  if (n < 0 || D <= 0 || n_rows < 0
+      || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long slabs = (count + SA_SLAB - 1) / SA_SLAB;
+  if (slabs > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (count > 0)
+    scatter_add_rows_kernel<<<(unsigned)slabs, SA_THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const int*>(idx),
+        static_cast<float*>(out), n, D, count);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,8 @@
 Ports of the Pallas TPU kernels ``repro/kernels/embedding_ops.py``:
 ``gather_rows`` is ``table[ids]``; ``scatter_add_rows`` accumulates
 ``out[idx[i]] += x[i]`` into zeros, duplicate ids summed in input order
-(the TPU kernel's sequential loop), with no float atomics.  The kernels'
-design notes are at the top of the CUDA source.
+(the TPU kernel's sequential loop), with no float atomics and no sort.
+The kernels' design notes are at the top of the CUDA source.
 
 CPU tensors go to the plain versions (:mod:`repro_torch.kernels.ref`);
 CUDA tensors launch the kernel or raise.  Each wrapper counts its launches
@@ -43,23 +43,26 @@ def gather_rows(table, ids):
 
 def scatter_add_rows(x, idx, n_rows: int):
     """x (n, D) f32, idx (n,) integer in [0, n_rows) -> (n_rows, D) f32
-    with ``out[idx[i]] += x[i]`` from zeros, in input order."""
+    with ``out[idx[i]] += x[i]`` from zeros, in input order.  On the card
+    one kernel launch: each block sums the ids that land in its slab of
+    the output in input order and writes the slab once (no sort, no
+    separate zero-fill); ids outside [0, n_rows) are skipped."""
     _build.refuse_grad("scatter_add_rows", x)
     if x.dim() != 2 or idx.shape != x.shape[:1]:
         raise ValueError(f"scatter_add_rows: x {tuple(x.shape)}, idx "
                          f"{tuple(idx.shape)} (want (n, D) and (n,))")
     if x.device.type == "cpu":
         return ref.scatter_add_rows(x, idx, n_rows)
-    # glue: a stable sort keeps each id's rows in input order, so each
-    # segment's sum in the kernel is the sequential one
-    sorted_idx, perm = torch.sort(idx.to(torch.int32), stable=True)
+    idx32 = idx.to(torch.int32).contiguous()   # no copy for int32 ids
     _build.check_dense("scatter_add_rows", (x, torch.float32),
-                       (sorted_idx, torch.int32), (perm, torch.int64))
+                       (idx32, torch.int32))
     n, D = x.shape
     out = torch.empty((n_rows, D), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
     err = _build.entry("repro_scatter_add_rows")(
-        x.data_ptr(), sorted_idx.data_ptr(), perm.data_ptr(), out.data_ptr(),
-        n, D, n_rows, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), idx32.data_ptr(), out.data_ptr(), n, D, n_rows,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("scatter_add_rows", err)
     scatter_add_rows.launches += 1
     return out

@@ -4,8 +4,11 @@ Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``: blocked
 online-softmax attention, forward only, causal and/or sliding-window mask,
 GQA without repeating K/V.  Layout q (B, H, Sq, D); k, v (B, Hk, Sk, D), any
 strides with a contiguous last dim (the ops layer hands in transposed views
-of the model's (B, S, H, D) tensors).  The kernel's design notes are at the
-top of the CUDA source.
+of the model's (B, S, H, D) tensors).  bfloat16 runs on the tensor cores
+(``mma.sync``): a block takes 16 query rows of one head and up to 4 warps
+split their key range in 16-key tiles, merging at the end; float32 keeps
+FMAs (one warp a query row), since TF32 would miss float32's tolerance.
+The design notes are at the top of the CUDA source.
 
 CPU tensors go to the plain version (:func:`repro_torch.kernels.ref
 .flash_attention`); CUDA tensors launch the kernel or raise.  There is no
