@@ -9,10 +9,16 @@ failing the run with a non-zero exit when its check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the kernels' build time and ptxas resource report (the bf16
-   prefill attention and the scatter kernels must not spill);
+   prefill attention, the scatter and the decode split and merge kernels
+   must not spill);
 2. kernels against their plain PyTorch versions on the card: every case of
    ``tests/test_torch_kernels.py`` (flash-attention, and flash-decode over
-   the dense, int8, paged and paged int8 caches), prefill cases across
+   the dense, int8, paged and paged int8 caches), decode cases across the
+   decode kernel's 64-key splits (live ranges ending on a split border and
+   one key past it, a window band starting in a later split, a ring
+   wrapping across splits, empty slots beside full ones, 3 draft rows with
+   GQA 8:1, D = 128, 18 splits, paged with 4- and 16-row blocks), prefill
+   cases across
    several 64-key tiles (S up to 333, D 64 and 128, GQA 4:1 and 8:1, a
    window across tile edges, causal off, Sq < Sk) plus RecLLM-base's
    serving shapes, in float32 (tolerance 1e-4) and bfloat16 (2e-2,
@@ -22,10 +28,12 @@ failing the run with a non-zero exit when its check fails:
    the plain version and, where one exists, of one PyTorch call computing
    the same function (``scaled_dot_product_attention`` with the
    equivalent boolean mask, a yardstick the port never calls), plus for
-   the paged kernels the dense kernel on the equivalent dense cache;
-   whether the redesigned prefill and scatter kernels are at or below
-   their PyTorch calls is printed as a ``[gate ...]`` line, reported and
-   not enforced.  The gradient-compression kernels (onebit quantize and
+   the paged kernels the dense kernel on the equivalent dense cache, and
+   for the decode kernels their CUDA kernels' profiled times; dense decode
+   also at Qwen3-30B-A3B's GQA shape beside SDPA with ``enable_gqa``;
+   whether the redesigned prefill, scatter and decode kernels are at or
+   below their PyTorch calls and their earlier designs' times is printed
+   as a ``[gate ...]`` line, reported and not enforced.  The gradient-compression kernels (onebit quantize and
    dequantize, top-k sparsify) likewise, on test sizes, tied values and
    the training phase's full flat gradient: bytes, kept values and
    residuals exact, scales within 1e-6 relative; timed beside their plain
@@ -72,7 +80,8 @@ failing the run with a non-zero exit when its check fails:
    copy on write, drain the pool and match the dense streams.  Each
    layout's workload once more under ``torch.profiler`` gives the device's
    busy share, its top kernels and the attention kernels' device time per
-   launch on the main path;
+   call on the main path (a decode call's split and merge kernels
+   together, the union of their intervals);
 4. serving the MoE archs at full width in bf16 with the router kernel on
    every MoE FFN and both attention kernels on: Moonlight-16B-A3B cut to
    12 of its 48 layers (7.52B parameters, 15.0 GB) under the dense,
@@ -181,9 +190,50 @@ PAGED_CASES = [  # (B, Sq, H, Hk, nb, bs, lengths, q_lens, window, ring)
     (3, 3, 2, 2, 5, 8, [2, 30, 38], [3, 2, 1], 6, False),
 ]
 CASE_D = 32
+# across the decode kernel's 64-key splits, both dtypes, D given:
+# (B, Sq, H, Hk, S, D, lengths, q_lens, window, ring)
+DECODE_SPLIT_CASES = [
+    (4, 1, 2, 2, 192, 32, [64, 65, 0, 192], None, 0, False),  # on a border,
+    #                                 one key past it, len 0 beside full
+    (3, 1, 4, 2, 192, 64, [100, 150, 191], None, 40, False),  # window band
+    #                                 starting inside a later split
+    (3, 1, 2, 2, 160, 32, [170, 230, 100], None, 70, True),   # ring wraps
+    #                                 across split borders
+    (4, 3, 16, 2, 200, 64, [63, 64, 0, 130], [3, 2, 3, 1], 0, False),  # Sq 3,
+    #                                 G 8: 24 rows, three row chunks
+    (2, 1, 8, 2, 256, 128, [129, 256], None, 0, False),       # D = 128
+    (2, 2, 8, 1, 130, 128, [64, 127], [2, 2], 30, True),      # D = 128, G 8,
+    #                                 ring, draft rows
+    (2, 1, 4, 2, 1100, 64, [1030, 1100], None, 0, False),     # 18 splits:
+    #                                 the merge's loads 8 splits at a time
+]
+QUANT_SPLIT_CASES = [  # (B, Sq, H, Hk, S, D, lengths, q_lens)
+    (4, 1, 2, 2, 192, 32, [64, 65, 0, 192], None),
+    (4, 3, 16, 2, 200, 64, [63, 64, 0, 130], [3, 2, 3, 1]),
+    (2, 1, 8, 2, 256, 128, [129, 300], None),                 # len past S
+    (2, 1, 4, 2, 1100, 64, [1030, 1100], None),               # 18 splits
+]
+# (B, Sq, H, Hk, nb, bs, D, lengths, q_lens, window, ring)
+PAGED_SPLIT_CASES = [
+    (4, 1, 2, 2, 48, 4, 32, [64, 65, 0, 192], None, 0, False),    # bs = 4
+    (4, 1, 2, 2, 12, 16, 32, [64, 65, 0, 192], None, 0, False),   # bs = 16
+    (3, 1, 4, 2, 12, 16, 64, [100, 150, 191], None, 40, False),
+    (3, 1, 2, 2, 40, 4, 32, [170, 230, 100], None, 70, True),
+    (4, 3, 16, 2, 13, 16, 64, [63, 64, 0, 130], [3, 2, 3, 1], 0, False),
+    (2, 1, 8, 2, 16, 16, 128, [129, 256], None, 0, False),
+    (2, 1, 4, 2, 69, 16, 64, [1030, 1100], None, 0, False),   # 18 splits
+]
 # RecLLM-base serving shapes
 DECODE_MAIN = dict(B=8, S=512, H=12, Hk=12, D=64,
                    lengths=[1, 37, 64, 100, 200, 300, 450, 512])
+# Qwen3-30B-A3B's decode attention (GQA 8:1) at the same slots and lengths
+DECODE_GQA = dict(DECODE_MAIN, H=32, Hk=4, D=128)
+# the decode kernels' times in the design this body replaced (one block a
+# (KV head, slot) walking its whole live range, query rows in turn), at
+# DECODE_MAIN behind the spin on an H100 80GB HBM3 at 700 W
+DECODE_GATE_MS = {"flash_decode": 0.0235, "flash_decode_quant": 0.0244,
+                  "flash_decode_paged": 0.0312,
+                  "flash_decode_paged_quant": 0.0311}
 BLOCK_MAIN = 16                    # paged: rows per block (pool 8*32 + 1)
 PREFILL_MAIN = [dict(B=1, H=12, S=s, D=64) for s in (24, 200)]
 # the per-row kernel's 0.0099 ms at S = 24, which the tile kernel replaced,
@@ -236,7 +286,8 @@ NO_LIBRARY = {
 
 
 # kernels that must build without register spills (ptxas -v)
-NO_SPILLS = ("flash_attention_mma_kernel", "scatter_add_rows_kernel")
+NO_SPILLS = ("flash_attention_mma_kernel", "scatter_add_rows_kernel",
+             "flash_decode_split_kernel", "flash_decode_merge_kernel")
 
 
 class SmokeFailure(Exception):
@@ -385,14 +436,18 @@ def _spin_ms(torch):
     return start.elapsed_time(end)
 
 
-def report_gate(what, ms, library_ms, library, limit_ms=None):
+def report_gate(what, ms, library_ms, library, limit_ms=None,
+                limit="the earlier design"):
     """Print whether a redesigned kernel is at or below its PyTorch call
-    (and ``limit_ms``) in this run.  Reported, not enforced: a time is
-    not a correctness check, and the host's noise would make it flaky."""
-    ok = ms <= library_ms and (limit_ms is None or ms <= limit_ms)
-    print(f"[gate {what}] kernel {ms:.4f} ms against {library} "
-          f"{library_ms:.4f} ms" + (f" and {limit_ms} ms" if limit_ms else "")
-          + (": met" if ok else ": MISSED"))
+    (when there is one) and ``limit_ms`` in this run.  Reported, not
+    enforced: a time is not a correctness check, and the host's noise
+    would make it flaky."""
+    ok = ((library_ms is None or ms <= library_ms)
+          and (limit_ms is None or ms <= limit_ms))
+    against = ([f"{library} {library_ms:.4f} ms"] if library_ms is not None
+               else []) + ([f"{limit} {limit_ms} ms"] if limit_ms else [])
+    print(f"[gate {what}] kernel {ms:.4f} ms against "
+          + " and ".join(against) + (": met" if ok else ": MISSED"))
 
 
 def _max_err(a, b):
@@ -528,6 +583,22 @@ def _case_builders(inp):
     }
 
 
+def _split_case_builders(inp):
+    """Like :func:`_case_builders`, for the cases across the decode
+    kernel's splits (head dim in the case)."""
+    return {
+        "flash_decode": [(c, lambda dt, c=c: inp.decode(*c, dt))
+                         for c in DECODE_SPLIT_CASES],
+        "flash_decode_quant": [(c, lambda dt, c=c: inp.quant(*c, dt))
+                               for c in QUANT_SPLIT_CASES],
+        "flash_decode_paged": [(c, lambda dt, c=c: inp.paged(*c, dt))
+                               for c in PAGED_SPLIT_CASES],
+        "flash_decode_paged_quant": [
+            (c, lambda dt, c=c: inp.paged(*c, dt, quant=True))
+            for c in PAGED_SPLIT_CASES if not c[-2]],
+    }
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import ref
@@ -539,14 +610,16 @@ def phase_kernels(torch):
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         name = str(dtype).replace("torch.", "")
         counts = []
-        for kname, cases in _case_builders(inp).items():
-            for case, build in cases:
-                fn, plain, args, kw = build(dtype)
-                err = _max_err(fn(*args, **kw), plain(*args, **kw))
-                report["cases"].append([kname, name, list(case), err])
-                check(err <= tol, f"{kname} {name} case {case}: max abs err "
-                                  f"{err} > {tol}")
-            counts.append(f"{len(cases)} {kname}")
+        for builders, what in ((_case_builders(inp), ""),
+                               (_split_case_builders(inp), " across splits")):
+            for kname, cases in builders.items():
+                for case, build in cases:
+                    fn, plain, args, kw = build(dtype)
+                    err = _max_err(fn(*args, **kw), plain(*args, **kw))
+                    report["cases"].append([kname, name, list(case), err])
+                    check(err <= tol, f"{kname} {name} case {case}: max abs "
+                                      f"err {err} > {tol}")
+                counts.append(f"{len(cases)} {kname}{what}")
         print(f"[kernels] {name}: {', '.join(counts)} cases within {tol} of "
               f"the plain versions (worst "
               f"{max(e for _, n, _, e in report['cases'] if n == name):.3g})")
@@ -583,17 +656,20 @@ def phase_kernels(torch):
     shape = f"B={B} S={S} H=Hk={H} D={D} bf16 q, lengths {m['lengths']}"
 
     def timing(kname, fn, plain, args, kw, nbytes, library=None,
-               dense=None, shape_note=""):
+               dense=None, shape_note="", at=(shape, D, flops)):
+        """Check and time one call at a serving shape; ``at`` is the
+        shape's (description, head dim, operations)."""
+        shape_, d, ops = at
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
             a = tuple(x.to(dt) if x.dtype in (torch.float32, torch.bfloat16)
-                      and x.dim() == 4 and x.shape[-1] == D else x
+                      and x.dim() == 4 and x.shape[-1] == d else x
                       for x in args)
             errs[dt] = _max_err(fn(*a, **kw), plain(*a, **kw))
         check(errs[torch.float32] <= F32_TOL
               and errs[torch.bfloat16] <= BF16_TOL,
               f"{kname} at the serving shape: errors {errs}")
-        t = {"shape": shape + shape_note,
+        t = {"shape": shape_ + shape_note,
              "max_abs_err": errs[torch.bfloat16], "tol": BF16_TOL,
              "max_abs_err_f32": errs[torch.float32],
              "ms": _time_ms(torch, lambda: fn(*args, **kw), flush),
@@ -601,12 +677,21 @@ def phase_kernels(torch):
              "library_ms": (_time_ms(torch, library, flush)
                             if library is not None else None),
              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-             "ops_ms": flops / BF16_FLOPS_PER_S * 1e3}
+             "ops_ms": ops / BF16_FLOPS_PER_S * 1e3}
         if library is None:
             t["library_note"] = NO_LIBRARY[kname]
         if dense is not None:
             t["dense_kernel_ms"] = _time_ms(torch, dense, flush)
-        report["timing"][kname] = [t]
+        # one call under the profiler, L2 flushed: each CUDA kernel's time,
+        # and the union of their intervals (they overlap under a dependent
+        # launch)
+        flush.zero_()
+        torch.cuda.synchronize()
+        events = _device_events(torch, lambda: fn(*args, **kw))
+        t["device_kernels_ms"] = {_kernel_name(n): (e - s) / 1e6
+                                  for n, s, e in events}
+        t["device_span_ms"] = _busy_ms([(s, e) for _, s, e in events])
+        report["timing"].setdefault(kname, []).append(t)
         return t
 
     # decode at RecLLM-base's serving shape, ragged lengths: dense bf16
@@ -655,6 +740,28 @@ def phase_kernels(torch):
            int8_bytes + tbl_bytes + qo_bytes, shape_note=note + ", int8",
            dense=lambda: dk.flash_decode_attention_quant(q, *dq, lengths))
 
+    # Qwen3-30B-A3B's decode (GQA 8:1, D = 128) at the same slots, beside
+    # SDPA with the query heads grouped over the KV heads
+    g = DECODE_GQA
+    Hq, Hg, Dg = g["H"], g["Hk"], g["D"]
+    qg = inp.randn(B, 1, Hq, Dg, dtype=torch.bfloat16)
+    kg, vg = (inp.randn(B, S, Hg, Dg, dtype=torch.bfloat16) for _ in "kv")
+    qgt, kgt, vgt = (x.transpose(1, 2) for x in (qg, kg, vg))
+    timing("flash_decode", dk.flash_decode_attention, ref.decode_attention,
+           (qg, kg, vg, lengths), {},
+           2 * live * Hg * Dg * 2 + 2 * B * Hq * Dg * 2 + 4 * B,
+           library=lambda: F.scaled_dot_product_attention(
+               qgt, kgt, vgt, attn_mask=mask, enable_gqa=True),
+           at=(f"B={B} S={S} H={Hq} Hk={Hg} D={Dg} (Qwen3-30B-A3B) bf16 q, "
+               f"lengths {m['lengths']}", Dg, 4 * live * Hq * Dg))
+    for kname, limit_ms in DECODE_GATE_MS.items():
+        t = report["timing"][kname][0]
+        report_gate(f"{kname} RecLLM", t["ms"], t["library_ms"],
+                    "sdpa with the length mask", limit_ms)
+    t = report["timing"]["flash_decode"][1]
+    report_gate("flash_decode Qwen3 GQA", t["ms"], t["library_ms"],
+                "sdpa with enable_gqa")
+
     # prefill at RecLLM-base's prompt shapes
     report["timing"]["flash_attention"] = []
     for pm in PREFILL_MAIN:
@@ -686,7 +793,8 @@ def phase_kernels(torch):
     for t, pm in zip(report["timing"]["flash_attention"], PREFILL_MAIN):
         report_gate(f"flash_attention S={pm['S']}", t["ms"],
                     t["library_ms"], "sdpa with the causal mask",
-                    PREFILL_GATE_MS.get(pm["S"]))
+                    PREFILL_GATE_MS.get(pm["S"]),
+                    "the per-row kernel's time + 10%")
     for name, rows in report["timing"].items():
         for t in rows:
             t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
@@ -697,11 +805,22 @@ def phase_kernels(torch):
             extra = (f", dense kernel on the gathered cache "
                      f"{t['dense_kernel_ms']:.4f} ms"
                      if "dense_kernel_ms" in t else "")
+            if "device_kernels_ms" in t:
+                extra += ", profiled " + ", ".join(
+                    f"{n} {ms:.4f}" for n, ms in
+                    t["device_kernels_ms"].items()) + (
+                    f" (span {t['device_span_ms']:.4f})")
             print(f"[time {name}] {t['shape']}: kernel {t['ms']:.4f} ms, "
                   f"plain {t['plain_ms']:.4f} ms, {lib}{extra}, bound "
                   f"{t['bound_ms']:.5f} ms ({t['bound_by']}), max abs err "
                   f"{t['max_abs_err']:.3g}")
     return report
+
+
+def _kernel_name(name):
+    """``void ns::foo_kernel<...>(...)`` -> ``foo_kernel``."""
+    found = re.search(r"(\w+)[<(]", name)
+    return found.group(1) if found else name[:40]
 
 
 def _first_divergence(a, b):
@@ -714,23 +833,44 @@ def _first_divergence(a, b):
     return None
 
 
-def _device_time(torch, fn):
-    """Run fn under torch.profiler; return {kernel name: (summed GPU time
-    in ms, launches)}.  Kernels on one stream never overlap, so the sum
-    over names is the time the device was busy.  Only the device is
-    traced: host-side operator events would add nothing read here and
-    most of the trace's processing time.  The profiler's raw events are
-    read, not ``prof.events()``, which builds a Python object for every
-    event and correlates them (about 25 times slower to read)."""
+def _device_events(torch, fn):
+    """Run fn under torch.profiler; return its CUDA kernels as (name,
+    start ns, end ns) in start order.  Only the device is traced:
+    host-side operator events would add nothing read here and most of the
+    trace's processing time.  The profiler's raw events are read, not
+    ``prof.events()``, which builds a Python object for every event and
+    correlates them (about 25 times slower to read)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return sorted(
+        ((ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+         for ev in prof.profiler.kineto_results.events()
+         if ev.device_type() == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e[1])
+
+
+def _busy_ms(intervals):
+    """The length in ms of the union of (start ns, end ns) intervals: the
+    time the device ran any of them.  Kernels on one stream overlap only
+    under a programmatic dependent launch (the decode merge kernel starts
+    while its split kernel runs), where a sum would count twice."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total / 1e6
+
+
+def _device_time(torch, fn):
+    """{kernel name: (summed GPU time in ms, launches)} of fn's run."""
     by_name = {}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(ev.name(), (0.0, 0))
-            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, n + 1)
+    for name, s, e in _device_events(torch, fn):
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (e - s) / 1e6, n + 1)
     return by_name
 
 
@@ -782,26 +922,35 @@ def serve_measured(name, cfg, ecfg, run, n_requests, per_layer,
 
 def profile_serve(torch, name, run, wall_s, tags):
     """The workload once more under ``torch.profiler``: device busy time
-    over the measured (unprofiled) run's wall time, the top kernels, and
-    the device time per launch of each kernel in ``tags`` (report name ->
-    a substring of its CUDA kernel's name)."""
+    (the union of the kernels' intervals) over the measured (unprofiled)
+    run's wall time, the top kernels, and the device time per wrapper call
+    of each kernel in ``tags`` (report name -> substrings of the names of
+    the CUDA kernels one call launches, the first naming the kernel that
+    starts each call): the union of the call's kernels' intervals."""
     t0 = time.perf_counter()
-    by_name = _device_time(torch, run)
+    events = _device_events(torch, run)
     profile_s = time.perf_counter() - t0
     wall_ms = wall_s * 1e3
-    busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(((n, ms) for n, (ms, _) in by_name.items()),
-                 key=lambda kv: -kv[1])[:6]
+    busy_ms = _busy_ms([(s, e) for _, s, e in events])
+    by_name = {}
+    for n, s, e in events:
+        by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     per_launch = {}
-    for kname, tag in tags.items():
-        hits = [v for n, v in by_name.items() if tag in n]
-        if hits:
-            per_launch[kname] = (sum(ms for ms, _ in hits)
-                                 / sum(c for _, c in hits))
+    for kname, subs in tags.items():
+        calls = []                      # each call's kernel intervals
+        for n, s, e in events:
+            if subs[0] in n:
+                calls.append([])
+            if calls and any(t in n for t in subs):
+                calls[-1].append((s, e))
+        if calls:
+            per_launch[kname] = (sum(_busy_ms(c) for c in calls)
+                                 / len(calls))
     if busy_ms > 0:
         print(f"[profile {name}] device busy {busy_ms:.2f} ms of the "
               f"measured run's {wall_ms:.1f} ms wall "
-              f"({busy_ms / wall_ms:.1%}); device ms per launch: "
+              f"({busy_ms / wall_ms:.1%}); device ms per call: "
               + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
               + "; top kernels: " + "; ".join(
                   f"{n[:48]} {ms:.2f} ms" for n, ms in top)
@@ -832,9 +981,11 @@ def first_logits(torch, tf, cfg, params, ctx, prompt, ecfg, nxt_token=None):
     return row, step
 
 
-# flash_attention_rows_kernel (f32) and flash_attention_mma_kernel (bf16)
-ATTN_TAGS = {"flash_attention": "flash_attention_",
-             "decode": "flash_decode_kernel"}
+# flash_attention_rows_kernel (f32) or flash_attention_mma_kernel (bf16),
+# one a call; a decode call's split kernel and its merge kernel
+ATTN_TAGS = {"flash_attention": ("flash_attention_",),
+             "decode": ("flash_decode_split_kernel",
+                        "flash_decode_merge_kernel")}
 
 
 # serving layouts beyond the dense bf16 cache: name -> (CacheLayout kwargs,
@@ -1018,7 +1169,7 @@ def phase_serving(torch):
 # the smoke run's time beside the RecLLM phases
 MOE_SERVE = [("moonlight", "moonshot-v1-16b-a3b", 12),
              ("qwen3", "qwen3-moe-30b-a3b", 4)]
-ROUTER_TAGS = dict(ATTN_TAGS, moe_router="moe_router_kernel")
+ROUTER_TAGS = dict(ATTN_TAGS, moe_router=("moe_router_kernel",))
 
 
 def phase_moe_serving(torch):
@@ -1122,7 +1273,7 @@ def phase_moe_serving(torch):
 
 # -- rwkv6 serving ------------------------------------------------------------
 
-WKV_TAGS = {"wkv6_chunked": "wkv6_kernel"}
+WKV_TAGS = {"wkv6_chunked": ("wkv6_kernel",)}
 
 
 def phase_rwkv6_serving(torch):

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_DECODE_ARGS = [_P] * 9 + [_I] * 8 + [ctypes.POINTER(_L), _F, _I, _I, _P]
+_DECODE_ARGS = ([_P] * 9 + [_I] * 8
+                + [ctypes.POINTER(_L), _F, _I, _I, _P, _I, _P])
 # C entry point -> (source it is built from, argtypes); see the extern "C"
 # blocks in csrc/.  The four decode layouts share one signature.
 SIGNATURES: Dict[str, Tuple[str, list]] = {

@@ -14,8 +14,11 @@ empty slots and dead rows), over four cache layouts:
   positions);
 * :func:`flash_decode_attention_paged_quant` -- int8 through the tables.
 
-The four share one CUDA kernel body; its design notes, including where it
-departs from the TPU kernels' structure, are at the top of the CUDA source.
+The four share one CUDA body, split over the KV range: one block per
+(64-key span, KV head, slot) scores every query row of the KV head against
+its span and writes a float32 partial (m, l, acc) to a workspace, and a
+second kernel merges a slot's live spans into o.  Its design notes are at
+the top of the CUDA source.
 
 Layouts: q (B, Sq, H, D); dense caches (B, S, Hk, D), scales (B, S, Hk);
 pools (N, bs, Hk, D), scale pools (N, bs, Hk), tables (B, nb) -- all read
@@ -25,9 +28,10 @@ lengths, q_lens (B,) integers.
 CPU tensors go to the plain versions (:mod:`repro_torch.kernels.ref`);
 CUDA tensors launch the kernel or raise.  There are no backward kernels,
 so a call that autograd would record raises, on the CPU too.  The TPU kernels'
-``block_k``/``interpret`` arguments have no counterpart: the CUDA kernel
-loops over the live range at key granularity.  Each wrapper counts its
-launches in ``.launches``.
+``block_k``/``interpret`` arguments have no counterpart: the CUDA kernel's
+span is fixed at :data:`SPLIT_KEYS` keys and its live range is found at key
+granularity.  Each wrapper counts its calls in ``.launches`` (one a call,
+though a call runs two CUDA kernels).
 """
 from __future__ import annotations
 
@@ -38,6 +42,9 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _NO_STRIDES = (0, 0, 0)
+# keys a block of the split kernel takes (FD_SPLIT in csrc/flash_decode.cu,
+# which refuses any other value): sizes the partials' workspace
+SPLIT_KEYS = 64
 
 
 def _scale_and_check(q, Hk: int, softmax_scale, window: int, ring: bool):
@@ -53,23 +60,25 @@ def _launch(fn_name: str, q, k, v, lengths, q_lens, scale, *, S: int,
             k_scale=None, v_scale=None, tables=None, bs: int = 0,
             window: int = 0, ring: bool = False):
     """Launch one decode entry point of ``csrc/flash_decode.cu`` on CUDA
-    tensors; returns the (B, Sq, H, D) output in q's dtype."""
+    tensors (its split and merge kernels); returns the (B, Sq, H, D)
+    output in q's dtype."""
     scales = () if k_scale is None else (k_scale, v_scale)
     _build.check_inputs(fn_name, q, k, v, scales=scales)
     B, Sq, H, D = q.shape
+    Hk = k.shape[2]
     dev = q.device
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     if q_lens is not None:
         q_lens = q_lens.to(device=dev, dtype=torch.int32).contiguous()
     if tables is not None:
         tables = tables.to(device=dev, dtype=torch.int32).contiguous()
-        if tables.shape[1] * 4 > 48 * 1024:
-            raise ValueError(f"{fn_name}: a block-table row of "
-                             f"{tables.shape[1]} entries exceeds the "
-                             "kernel's 48 KB of shared memory")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     if B == 0 or Sq == 0:
         return out
+    # one float32 partial (acc, then m and l) per (slot, KV head, span, row)
+    n_split = -(-(S * bs if tables is not None else S) // SPLIT_KEYS)
+    ws = torch.empty(B * Hk * n_split * Sq * (H // Hk) * (D + 2),
+                     dtype=torch.float32, device=dev)
     strides = (*q.stride()[:3], *out.stride()[:3], *k.stride()[:3],
                *v.stride()[:3],
                *(k_scale.stride() if k_scale is not None else _NO_STRIDES),
@@ -82,9 +91,10 @@ def _launch(fn_name: str, q, k, v, lengths, q_lens, scale, *, S: int,
     err = _build.entry(fn_name)(
         q.data_ptr(), out.data_ptr(), k.data_ptr(), v.data_ptr(),
         ptr(k_scale), ptr(v_scale), lengths.data_ptr(), ptr(q_lens),
-        ptr(tables), int(q.dtype == torch.bfloat16), B, Sq, H, k.shape[2],
-        S, bs, D, (ctypes.c_longlong * len(strides))(*strides), float(scale),
-        int(window), int(ring), torch.cuda.current_stream(dev).cuda_stream)
+        ptr(tables), int(q.dtype == torch.bfloat16), B, Sq, H, Hk, S, bs, D,
+        (ctypes.c_longlong * len(strides))(*strides), float(scale),
+        int(window), int(ring), ws.data_ptr(), SPLIT_KEYS,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(fn_name, err)
     return out
 

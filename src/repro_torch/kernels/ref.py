@@ -130,6 +130,74 @@ def decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths, *,
     return pv.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def decode_attention_splits(q, k, v, lengths, *, span: int, window=0,
+                            ring=False, softmax_scale=None, q_lens=None,
+                            k_s=None, v_s=None):
+    """The CUDA decode kernels' split-and-merge, step for step: what
+    :func:`decode_attention` (``k_s``/``v_s`` None) or
+    :func:`decode_attention_quant` (int8 ``k``/``v`` with their scales)
+    computes, taken as float32 partials over spans of ``span`` keys and
+    merged.  A span sees only the slot's live keys [lo, hi) (hi =
+    min(lengths + q_lens - 1, S); lo = lengths - window for a linear
+    window band, else 0), each row's masked ones at probability 0; its
+    partial is the row's max score m (NEG_INF when none is valid), the sum
+    l of exp(s - m) and acc = sum of exp(s - m) * v_s * v.  The merge reads
+    the partials of the live spans only, rescales each by exp(m - max m),
+    and divides by the rescaled l floored at 1e-30: an empty span adds
+    nothing, a row with no live key is exactly 0.  (Past 8 live spans the
+    CUDA merge folds them in 8 at a time into a running max: the same sums
+    up to rounding.)  The serving path does not run it; the tests hold it
+    to the plain versions."""
+    B, Sq, H, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    dev = q.device
+    lengths = lengths.to(torch.int64)
+    q_lens = (torch.full((B,), Sq, dtype=torch.int64, device=dev)
+              if q_lens is None else q_lens.to(torch.int64))
+    n = -(-S // span)
+    pad = n * span - S
+
+    def spans(x, fill):             # (B, S, ...) -> (B, n, span, ...)
+        x = torch.cat([x, x.new_full((B, pad) + tuple(x.shape[2:]), fill)], 1)
+        return x.reshape((B, n, span) + tuple(x.shape[2:]))
+
+    hi = torch.clamp(torch.minimum(lengths + q_lens - 1,
+                                   torch.tensor(S, device=dev)), min=0)
+    lo = (torch.clamp(lengths - window, min=0) if window > 0 and not ring
+          else torch.zeros_like(lengths))
+    pos = torch.arange(S, device=dev)[None, :]
+    staged = (pos >= lo[:, None]) & (pos < hi[:, None])          # (B, S)
+    valid = (_decode_mask_rows(lengths, q_lens, Sq, S, window, ring)
+             & staged[:, None, :])                               # (B, Sq, S)
+    valid = spans(valid.transpose(1, 2), False)                  # (B,n,sp,Sq)
+    qg = q.reshape(B, Sq, Hk, G, D).float()
+    s = torch.einsum("bjhgd,bnkhd->bhjgnk", qg, spans(k.float(), 0.0))
+    if k_s is not None:
+        s = s * spans(k_s.float(), 0.0).permute(0, 3, 1, 2)[:, :, None, None]
+    s = s * scale
+    mask = valid.permute(0, 3, 1, 2)[:, None, :, None]       # (B,1,Sq,1,n,sp)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1)                                # (B,Hk,Sq,G,n)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = torch.sum(p, dim=-1)
+    if v_s is not None:
+        p = p * spans(v_s.float(), 0.0).permute(0, 3, 1, 2)[:, :, None, None]
+    acc = torch.einsum("bhjgnk,bnkhd->bhjgnd", p, spans(v.float(), 0.0))
+    # the merge: the live spans [lo // span, ceil(hi / span)) only
+    sp = torch.arange(n, device=dev)[None, :]
+    live = ((sp >= (lo // span)[:, None]) & (sp < (-(-hi // span))[:, None])
+            & (lo < hi)[:, None])[:, None, None, None, :]    # (B,1,1,1,n)
+    m = torch.where(live, m, torch.full_like(m, NEG_INF))
+    mx = torch.amax(m, dim=-1, keepdim=True)
+    c = torch.where(live, torch.exp(m - mx), torch.zeros_like(m))
+    lsum = torch.sum(l * c, dim=-1)
+    out = torch.sum(acc * c[..., None], dim=-2) / torch.clamp(
+        lsum, min=1e-30)[..., None]                          # (B,Hk,Sq,G,D)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # paged layouts: a shared pool (N, bs, ...) + per-slot block tables (B, nb)
 # ---------------------------------------------------------------------------

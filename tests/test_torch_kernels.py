@@ -6,6 +6,14 @@ version each CUDA wrapper runs there).  Tolerance 1e-5 absolute in float32:
 both sides compute in float32 and differ only in summation order.  The
 cases use head_dim 32, a width the CUDA kernels take: ``chip_smoke.py``
 runs every one of them through the kernels on the GPU.
+
+The CUDA decode kernels split each slot's KV range into spans and merge
+the spans' partials; ``ref.decode_attention_splits`` does that step for
+step, and is held to the four plain decode versions here (1e-6 in float32
+of the largest plain |value|, floored at 1: the int8 cases' outputs reach
+~6, where 1e-6 is two float32 ulps; exact zeros where they give zeros) on
+these cases and on cases across the kernel's 64-key spans, at spans of 1,
+8, 64 and more than S.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +24,7 @@ from repro.kernels import decode_attention as jdk
 from repro.kernels import ops as jops
 from repro_torch.cache_layout import CacheLayout
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref
 
 torch.set_num_threads(2)
 
@@ -62,6 +71,44 @@ PAGED_CASES = [
     (3, 3, 2, 2, 5, 8, [2, 30, 38], [3, 2, 1], 6, False),   # k, window
 ]
 
+# across the CUDA decode kernel's 64-key spans (the cases chip_smoke.py adds
+# on the card), each with its head dim: ((B, Sq, H, Hk, S, lengths, q_lens,
+# window, ring), D)
+DECODE_SPLIT_CASES = [
+    ((4, 1, 2, 2, 192, [64, 65, 0, 192], None, 0, False), 32),  # on a span
+    #                         border, one key past it, len 0 beside full
+    ((3, 1, 4, 2, 192, [100, 150, 191], None, 40, False), 64),  # window band
+    #                         starting inside a later span
+    ((3, 1, 2, 2, 160, [170, 230, 100], None, 70, True), 32),   # ring wraps
+    #                         across span borders
+    ((4, 3, 16, 2, 200, [63, 64, 0, 130], [3, 2, 3, 1], 0, False), 64),
+    #                         Sq = 3 draft rows, G = 8
+    ((2, 1, 8, 2, 256, [129, 256], None, 0, False), 128),       # D = 128
+    ((2, 2, 8, 1, 130, [64, 127], [2, 2], 30, True), 128),      # G 8, ring
+    ((2, 1, 4, 2, 1100, [1030, 1100], None, 0, False), 64),     # 18 spans
+]
+QUANT_SPLIT_CASES = [  # ((B, Sq, H, Hk, S, lengths, q_lens), D)
+    ((4, 1, 2, 2, 192, [64, 65, 0, 192], None), 32),
+    ((4, 3, 16, 2, 200, [63, 64, 0, 130], [3, 2, 3, 1]), 64),
+    ((2, 1, 8, 2, 256, [129, 300], None), 128),                 # len > S
+]
+# ((B, Sq, H, Hk, nb, bs, lengths, q_lens, window, ring), D)
+PAGED_SPLIT_CASES = [
+    ((4, 1, 2, 2, 48, 4, [64, 65, 0, 192], None, 0, False), 32),   # bs 4
+    ((4, 1, 2, 2, 12, 16, [64, 65, 0, 192], None, 0, False), 32),  # bs 16
+    ((3, 1, 4, 2, 12, 16, [100, 150, 191], None, 40, False), 64),
+    ((3, 1, 2, 2, 40, 4, [170, 230, 100], None, 70, True), 32),
+    ((4, 3, 16, 2, 13, 16, [63, 64, 0, 130], [3, 2, 3, 1], 0, False), 64),
+    ((2, 1, 8, 2, 16, 16, [129, 256], None, 0, False), 128),
+    ((2, 1, 4, 2, 69, 16, [1030, 1100], None, 0, False), 64),   # 18 spans
+]
+# The 18-span cases run in 16-bit only: over 1,100 int8 keys (values to
+# ~6) the plain float32 version is itself ~4e-6 from a float64 sum, above
+# SPLIT_TOL; chip_smoke.py holds the int8 kernels there at 1e-4.
+LONG = 1000
+SPANS = (1, 8, 64, 1000)          # 1000: one span longer than any S here
+SPLIT_TOL = 1e-6
+
 D = 32
 BLOCK = 16
 
@@ -77,26 +124,26 @@ def _prefill_inputs(case, seed=0):
             _rand(rng, B, Hk, S, D)), dict(causal=causal, window=window)
 
 
-def _decode_inputs(case, seed=0):
+def _decode_inputs(case, seed=0, d=D):
     B, Sq, H, Hk, S, lengths, q_lens, window, ring = case
     rng = np.random.default_rng(seed)
-    arrs = (_rand(rng, B, Sq, H, D), _rand(rng, B, S, Hk, D),
-            _rand(rng, B, S, Hk, D), np.asarray(lengths, np.int32),
+    arrs = (_rand(rng, B, Sq, H, d), _rand(rng, B, S, Hk, d),
+            _rand(rng, B, S, Hk, d), np.asarray(lengths, np.int32),
             None if q_lens is None else np.asarray(q_lens, np.int32))
     return arrs, dict(window=window, ring=ring)
 
 
-def _quant_inputs(case, seed=0):
+def _quant_inputs(case, seed=0, d=D):
     B, Sq, H, Hk, S, lengths, q_lens = case
     rng = np.random.default_rng(seed)
 
     def vals():
-        return rng.integers(-127, 128, (B, S, Hk, D)).astype(np.int8)
+        return rng.integers(-127, 128, (B, S, Hk, d)).astype(np.int8)
 
     def scales():
         return rng.uniform(0.005, 0.05, (B, S, Hk)).astype(np.float32)
 
-    return (_rand(rng, B, Sq, H, D), vals(), scales(), vals(), scales(),
+    return (_rand(rng, B, Sq, H, d), vals(), scales(), vals(), scales(),
             np.asarray(lengths, np.int32),
             None if q_lens is None else np.asarray(q_lens, np.int32))
 
@@ -117,20 +164,20 @@ def paged_tables(lengths, q_lens, nb, bs, ring, seed=0):
     return tables, N
 
 
-def _paged_inputs(case, seed=0, quant=False):
+def _paged_inputs(case, seed=0, quant=False, d=D):
     B, Sq, H, Hk, nb, bs, lengths, q_lens, window, ring = case
     rng = np.random.default_rng(seed)
     tables, N = paged_tables(lengths, q_lens, nb, bs, ring, seed)
-    q = _rand(rng, B, Sq, H, D)
+    q = _rand(rng, B, Sq, H, d)
     if quant:
-        pools = (rng.integers(-127, 128, (N, bs, Hk, D)).astype(np.int8),
+        pools = (rng.integers(-127, 128, (N, bs, Hk, d)).astype(np.int8),
                  rng.uniform(0.005, 0.05, (N, bs, Hk)).astype(np.float32),
-                 rng.integers(-127, 128, (N, bs, Hk, D)).astype(np.int8),
+                 rng.integers(-127, 128, (N, bs, Hk, d)).astype(np.int8),
                  rng.uniform(0.005, 0.05, (N, bs, Hk)).astype(np.float32))
     else:
         # blocks no table maps (block 0 and the spares) hold large garbage
         unused = ~np.isin(np.arange(N), tables[tables > 0])
-        pools = tuple(_rand(rng, N, bs, Hk, D) * np.where(unused, 10.0, 1.0)[
+        pools = tuple(_rand(rng, N, bs, Hk, d) * np.where(unused, 10.0, 1.0)[
             :, None, None, None].astype(np.float32) for _ in range(2))
     return (q, pools, tables, np.asarray(lengths, np.int32),
             None if q_lens is None else np.asarray(q_lens, np.int32))
@@ -271,3 +318,66 @@ def test_unported_layouts_raise():
         with pytest.raises(ValueError, match="full-cache masking"):
             tops.decode_attention(q, cache, torch.ones(1, dtype=torch.int32),
                                   layout=layout)
+
+
+def _hold_split(got, want):
+    """got within SPLIT_TOL of want's largest magnitude (at least 1), and
+    exactly 0 on every row want zeroes (empty slots, dead draft rows)."""
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=SPLIT_TOL * scale, rtol=0)
+    dead = ~want.reshape(-1, want.shape[-1]).any(-1)
+    assert not got.reshape(-1, got.shape[-1])[dead].any()
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("case,d", [(c, D) for c in DECODE_CASES]
+                         + DECODE_SPLIT_CASES)
+def test_split_merge_matches_plain_decode(case, d, span):
+    (q, k, v, lengths, q_lens), kw = _decode_inputs(case, d=d)
+    args = (_t(q), _t(k), _t(v), _t(lengths))
+    want = ref.decode_attention(*args, q_lens=_t(q_lens), **kw)
+    _hold_split(ref.decode_attention_splits(*args, span=span,
+                                            q_lens=_t(q_lens), **kw), want)
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("case,d", [(c, D) for c in QUANT_CASES]
+                         + QUANT_SPLIT_CASES)
+def test_split_merge_matches_plain_decode_quant(case, d, span):
+    q, k_q, k_s, v_q, v_s, lengths, q_lens = map(_t, _quant_inputs(case,
+                                                                  d=d))
+    want = ref.decode_attention_quant(q, k_q, k_s, v_q, v_s, lengths,
+                                      q_lens=q_lens)
+    _hold_split(ref.decode_attention_splits(
+        q, k_q, v_q, lengths, span=span, q_lens=q_lens, k_s=k_s, v_s=v_s),
+        want)
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("case,d", [(c, D) for c in PAGED_CASES]
+                         + PAGED_SPLIT_CASES)
+def test_split_merge_matches_plain_decode_paged(case, d, span):
+    window, ring = case[-2:]
+    q, pools, tables, lengths, q_lens = _paged_inputs(case, d=d)
+    q, kp, vp, tables, lengths, q_lens = map(
+        _t, (q, *pools, tables, lengths, q_lens))
+    want = ref.decode_attention_paged(q, kp, vp, tables, lengths,
+                                      window=window, ring=ring, q_lens=q_lens)
+    _hold_split(ref.decode_attention_splits(
+        q, ref.paged_gather(kp, tables), ref.paged_gather(vp, tables),
+        lengths, span=span, window=window, ring=ring, q_lens=q_lens), want)
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("case,d", [(c, D) for c in PAGED_CASES if not c[-2]]
+                         + [c for c in PAGED_SPLIT_CASES
+                            if not c[0][-2] and max(c[0][6]) < LONG])
+def test_split_merge_matches_plain_decode_paged_quant(case, d, span):
+    q, pools, tables, lengths, q_lens = _paged_inputs(case, quant=True, d=d)
+    q, tables, lengths, q_lens = map(_t, (q, tables, lengths, q_lens))
+    k_q, k_s, v_q, v_s = (ref.paged_gather(_t(x), tables) for x in pools)
+    want = ref.decode_attention_paged_quant(q, *map(_t, pools), tables,
+                                            lengths, q_lens=q_lens)
+    _hold_split(ref.decode_attention_splits(
+        q, k_q, v_q, lengths, span=span, q_lens=q_lens, k_s=k_s, v_s=v_s),
+        want)
