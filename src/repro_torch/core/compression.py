@@ -7,7 +7,8 @@ of ``repro/core/compression.py`` over ``torch.distributed``.
   against 4N for f32), dequantizes all P payloads in one launch and
   averages them.  The quantization error stays in a per-rank residual
   that is added to the next step's gradient (error feedback, Eq. 11).
-* top-k: each rank keeps the block-local top-k magnitudes (the
+* top-k: each rank picks each block's k largest magnitudes and the
+  residual they leave in one pass (the ``topk_select`` entry of the
   ``topk_sparsify`` kernel), all-gathers exactly k (value, int32 index)
   pairs per block (8k bytes per block) and scatter-adds them locally.
 
@@ -73,36 +74,18 @@ def onebit_sync(grads, residual: torch.Tensor, *, mesh: DPMesh,
     return _unflatten(g_hat[:n], meta), new_residual
 
 
-def _topk_indices(kept2d: torch.Tensor, k: int) -> torch.Tensor:
-    """``lax.top_k(|kept2d|, k)``'s indices: largest magnitude first, ties
-    to the lowest index.  Magnitudes are non-negative floats, whose bit
-    patterns order like the values, so one int64 key per element (bits
-    high, reversed index low) is unique and ``torch.topk`` over it has no
-    ties to break."""
-    block = kept2d.shape[-1]
-    bits = torch.abs(kept2d).view(torch.int32).to(torch.int64)
-    rev = block - 1 - torch.arange(block, device=kept2d.device)
-    return torch.topk((bits << 32) | rev, k, dim=-1).indices
-
-
 def topk_sync(grads, residual: torch.Tensor, *, mesh: DPMesh,
               axis: str = "data", block: int = 2048, k: int = 32,
               use_kernel: bool = True) -> Tuple[object, torch.Tensor]:
     """Top-k sparsified sync (Eq. 11).  residual: flat (N_pad,) f32."""
     flat, meta, npad = _padded(grads, residual)
-    impl = "kernel" if use_kernel else "ref"
-    kept, _ = ops.topk_sparsify(flat, k, block, impl=impl)
     # exactly k (value, index) pairs per block -> the wire payload (ties
     # beyond k fall back into the residual: error feedback keeps them)
-    nb = flat.shape[0] // block
-    kept2d = kept.reshape(nb, block)
-    idx = _topk_indices(kept2d, k)                        # (nb, k)
-    vals = torch.gather(kept2d, -1, idx)                  # signed values
-    sent = torch.zeros_like(kept2d).scatter_(-1, idx, vals)
-    new_residual = flat - sent.reshape(-1)
+    idx, vals, new_residual = ops.topk_select(
+        flat, k, block, impl="kernel" if use_kernel else "ref")
     vals_all = all_gather(vals, mesh, axis)               # (P, nb, k)
-    idx_all = all_gather(idx.to(torch.int32), mesh, axis)
-    acc = torch.zeros_like(kept2d)
+    idx_all = all_gather(idx, mesh, axis)
+    acc = flat.new_zeros((flat.shape[0] // block, block))
     for p in range(mesh.shape[axis]):
         acc.scatter_add_(-1, idx_all[p].long(), vals_all[p])
     g_hat = (acc / mesh.shape[axis]).reshape(-1)

@@ -47,6 +47,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "repro_onebit_dequantize": ("grad_compress",
                                 [_P] * 3 + [_I, _L, _I, _P]),
     "repro_topk_sparsify": ("topk_sparsify", [_P] * 3 + [_L, _I, _I, _P]),
+    "repro_topk_select": ("topk_sparsify", [_P] * 4 + [_L, _I, _I, _P]),
     "repro_gather_rows": ("embedding_ops", [_P] * 3 + [_L] * 3 + [_P]),
     "repro_scatter_add_rows": ("embedding_ops",
                                [_P] * 3 + [_L, _I, _L, _P]),

@@ -206,6 +206,22 @@ def topk_sparsify(g, k: int, block: int = 2048, impl="kernel"):
     return kept.reshape(N), resid.reshape(N)
 
 
+def topk_select(g, k: int, block: int = 2048, impl="kernel"):
+    """Flat (N,) f32 -> (idx (N/block, k) int32, vals (N/block, k),
+    resid_sent (N,)): each block's k largest magnitudes (largest first,
+    ties to the lowest index), their signed values, and g minus them.  The
+    top-k sync's payload; both impls give the same (the selection does
+    not depend on the sparsifier's threshold)."""
+    _check_impl(impl)
+    N = g.shape[0]
+    if N % block:
+        raise ValueError(f"N={N} is not a multiple of block={block}")
+    x2d = g.reshape(N // block, block)
+    fn = ref.topk_select if impl == "ref" else _topk.topk_select
+    idx, vals, resid = fn(x2d, k)
+    return idx, vals, resid.reshape(N)
+
+
 # -- embedding gather / scatter-add -------------------------------------------
 
 def embedding_gather(table, ids, impl="kernel"):

@@ -318,6 +318,25 @@ def topk_sparsify_rounds(x2d, k: int):
     return kept, x2d - kept
 
 
+def topk_select(x2d, k: int):
+    """The top-k sync's payload: (idx (nb, k) int32, vals (nb, k),
+    resid_sent (nb, block)).  idx are the k largest |x| of each row,
+    largest first, ties to the lowest index (``lax.top_k``'s order); vals
+    the signed values there; resid_sent = x minus those values scattered
+    back.  The JAX sync picks them from |kept| of either threshold above,
+    which holds every one of them, so picking from |x| gives the same.
+    Magnitudes are non-negative floats, whose bit patterns order like the
+    values, so one int64 key per element (bits high, reversed index low)
+    is unique and ``torch.topk`` over it has no ties to break."""
+    block = x2d.shape[-1]
+    bits = torch.abs(x2d).view(torch.int32).to(torch.int64)
+    rev = block - 1 - torch.arange(block, device=x2d.device)
+    idx = torch.topk((bits << 32) | rev, k, dim=-1).indices
+    vals = torch.gather(x2d, -1, idx)
+    sent = torch.zeros_like(x2d).scatter_(-1, idx, vals)
+    return idx.to(torch.int32), vals, x2d - sent
+
+
 # ---------------------------------------------------------------------------
 # embedding gather / segment-sum scatter-add (the dedup-lookup pair)
 # ---------------------------------------------------------------------------
