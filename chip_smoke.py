@@ -9,8 +9,8 @@ failing the run with a non-zero exit when its check fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, the kernels' build time and ptxas resource report (the bf16
-   prefill attention, the scatter, the decode split and merge kernels and
-   the top-k row kernels must not spill);
+   prefill attention, the scatter, the decode split and merge kernels,
+   the top-k row kernels and the three WKV kernels must not spill);
 2. kernels against their plain PyTorch versions on the card: every case of
    ``tests/test_torch_kernels.py`` (flash-attention, and flash-decode over
    the dense, int8, paged and paged int8 caches), decode cases across the
@@ -61,11 +61,13 @@ failing the run with a non-zero exit when its check fails:
    lowest index first): probs and gates within 1e-6, indices equal except
    on rows whose top k + 1 probs hold a near-tie (counted); timed beside
    ``torch.softmax`` -> ``torch.topk`` -> normalise.  The chunked WKV6
-   kernel at the JAX kernel test's shapes, rwkv6-1.6b's serving prefill
-   (1, 32, 48, 64) and a long prompt (1, 32, 4096, 64), each with drawn
-   decays and with w = 1e-6: output and final state within 2e-4 of the
-   largest value of the plain chunked recurrence and of the sequential
-   scan; pads frozen with w = 1, k = 0 give the unpadded prompt's state;
+   kernel at the JAX kernel test's shapes, B * H = 15, 33 tiles (a ragged
+   carry segment), rwkv6-1.6b's serving prefill (1, 32, 48, 64) and a
+   long prompt (1, 32, 4096, 64), each with drawn decays and with w =
+   1e-6, and on transposed (B, T, H, hs) views read in place: output and
+   final state within 2e-4 of the largest value of the plain chunked
+   recurrence and of the sequential scan, the output laid out as the
+   views; pads frozen with w = 1, k = 0 give the unpadded prompt's state;
    timed at the two timed shapes beside both plain versions, whose
    hundreds to thousands of launches are timed as the profiler's sum of
    their kernels' device time (no PyTorch call computes it).  Every kernel wrapper must raise on inputs that
@@ -109,10 +111,17 @@ failing the run with a non-zero exit when its check fails:
    request served, ``wkv6_chunked`` launched once per layer per prefill (0
    on the plain path; decode steps are the one-token update); a profile of
    the dense kernel and plain runs gives the device's busy share and the
-   kernel's device time per launch; paged streams must equal dense ones (the
-   paged layout pages nothing for rwkv6), the plain path's first stream
-   divergence is printed, and the first prefill row and decode step
-   logits must be finite and within 2e-2 of the largest logit;
+   kernel's device time per call (the union of its kernels' intervals);
+   paged streams must equal dense ones (the paged layout pages nothing for
+   rwkv6), the plain path's first stream divergence is printed, and the
+   first prefill row and decode step logits of 4 prompts must be finite
+   and, with the model in float32, within 1e-4 (absolute) of the plain
+   path's; the bf16 differences are printed beside those between the two
+   plain paths (the chunked recurrence and the sequential scan), which
+   bf16 rounding over 24 layers makes as large.  Then one 4096-token
+   prompt through the forward with the kernel and with the plain path:
+   bf16 wall time, device busy and WKV device time per call, and every
+   position's logits (bf16 printed, float32 within 1e-4);
 6. training RecLLM-base at full width in float32 (178.0M parameters, the
    full dataset, batch 32 x seq 32) through ``repro_torch.runtime.trainer``'s
    data-parallel step on a one-rank NCCL group: 20 steps each under flat,
@@ -140,6 +149,15 @@ It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero before printing either.
+
+  python3 chip_smoke.py --wkv6-against TREE
+
+runs none of the phases: it times the WKV kernel of another checkout at
+TREE (an earlier commit unpacked with ``git archive``) and this one's in
+turns, each in a process of its own (TREE, this, this, TREE): the timed
+shapes behind the spin and rwkv6-1.6b's dense serve run (TTFT and TPOT
+p50, the WKV device time of every call), and prints each tree's medians
+and quartiles.
 """
 import argparse
 import dataclasses
@@ -299,7 +317,8 @@ NO_LIBRARY = {
 # kernels that must build without register spills (ptxas -v)
 NO_SPILLS = ("flash_attention_mma_kernel", "scatter_add_rows_kernel",
              "flash_decode_split_kernel", "flash_decode_merge_kernel",
-             "topk_rows_kernel")
+             "topk_rows_kernel", "wkv6_intra_kernel", "wkv6_span_kernel",
+             "wkv6_carry_kernel")
 
 
 class SmokeFailure(Exception):
@@ -965,6 +984,19 @@ def serve_measured(name, cfg, ecfg, run, n_requests, per_layer,
             "launches": launches}, outputs
 
 
+def _calls_ms(events, subs):
+    """Device ms of each wrapper call in a trace: the union of the
+    intervals of the kernels named by ``subs`` (substrings of the CUDA
+    kernels' names, the first naming the kernel that starts each call)."""
+    calls = []
+    for n, s, e in events:
+        if subs[0] in n:
+            calls.append([])
+        if calls and any(t in n for t in subs):
+            calls[-1].append((s, e))
+    return [_busy_ms(c) for c in calls]
+
+
 def profile_serve(torch, name, run, wall_s, tags):
     """The workload once more under ``torch.profiler``: device busy time
     (the union of the kernels' intervals) over the measured (unprofiled)
@@ -983,15 +1015,9 @@ def profile_serve(torch, name, run, wall_s, tags):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     per_launch = {}
     for kname, subs in tags.items():
-        calls = []                      # each call's kernel intervals
-        for n, s, e in events:
-            if subs[0] in n:
-                calls.append([])
-            if calls and any(t in n for t in subs):
-                calls[-1].append((s, e))
+        calls = _calls_ms(events, subs)
         if calls:
-            per_launch[kname] = (sum(_busy_ms(c) for c in calls)
-                                 / len(calls))
+            per_launch[kname] = sum(calls) / len(calls)
     if busy_ms > 0:
         print(f"[profile {name}] device busy {busy_ms:.2f} ms of the "
               f"measured run's {wall_ms:.1f} ms wall "
@@ -1318,7 +1344,99 @@ def phase_moe_serving(torch):
 
 # -- rwkv6 serving ------------------------------------------------------------
 
-WKV_TAGS = {"wkv6_chunked": ("wkv6_kernel",)}
+# a call's kernels: the chunks, the segment boundaries' states (long
+# prompts only), then the state carried across the chunks
+WKV_TAGS = {"wkv6_chunked": ("wkv6_intra_kernel", "wkv6_span_kernel",
+                             "wkv6_carry_kernel")}
+WKV_LONG = 4096          # the long prompt's tokens (a long user history)
+WKV_PROMPTS = 4          # prompts whose first logits are compared
+
+
+def _wkv_scan(on):
+    """While ``on``: the model's WKV kernel calls routed to the sequential
+    scan (``ops.wkv6_chunked(impl="ref")``), a second plain path."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+    kernel = ops.wkv6_chunked
+
+    @contextlib.contextmanager
+    def routed():
+        ops.wkv6_chunked = (lambda *a, **kw: kernel(*a, **dict(kw,
+                                                              impl="ref")))
+        try:
+            yield
+        finally:
+            ops.wkv6_chunked = kernel
+    return routed() if on else contextlib.nullcontext()
+
+
+def long_prompt(torch, tf, bf16, f32, kern, plain):
+    """One ``WKV_LONG``-token prompt through rwkv6's forward at full width,
+    with the WKV kernel and with the plain chunked recurrence.  In bf16
+    (``bf16`` = (cfg, params)): the wall time of each (after a warm-up),
+    the WKV launches, a profile (device busy, the kernel's device ms per
+    call: the union of its kernels' intervals) and the logits' difference
+    beside the bf16 tolerance (reported: see the first-row check).  In
+    float32: the logits of the two paths held within ``F32_TOL``."""
+    dev = torch.device("cuda")
+    tokens = torch.randint(0, bf16[0].vocab_size, (1, WKV_LONG), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+    out, diffs = {}, {}
+    for dname, (cfg, params) in (("bfloat16", bf16), ("float32", f32)):
+        logits = {}
+        for name, ctx in (("kernel", kern), ("plain", plain)):
+            def fwd(ctx=ctx):
+                with torch.inference_mode():
+                    return tf.forward(cfg, params, {"tokens": tokens},
+                                      ctx)[0]
+            if dname == "float32":
+                logits[name] = fwd()
+                continue
+            fwd()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            logits[name] = fwd()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = read_launches()["wkv6_chunked"]
+            events = _device_events(torch, fwd)
+            calls = _calls_ms(events, WKV_TAGS["wkv6_chunked"])
+            busy_ms = _busy_ms([(a, b) for _, a, b in events])
+            out[name] = {"wall_s": wall_s, "wkv_launches": launches,
+                         "device_busy_ms": busy_ms,
+                         "wkv_ms_per_call": (sum(calls) / len(calls)
+                                             if calls else None)}
+        check(all(bool(torch.isfinite(x).all()) for x in logits.values()),
+              f"rwkv6 long prompt: non-finite {dname} logits")
+        diffs[dname] = (_max_err(logits["kernel"], logits["plain"]),
+                        float(logits["plain"].float().abs().max()))
+        logits = None
+    check(out["kernel"]["wkv_launches"] == bf16[0].num_layers
+          and out["plain"]["wkv_launches"] == 0,
+          f"rwkv6 long prompt: WKV launches {out['kernel']['wkv_launches']} "
+          f"with the kernel (want {bf16[0].num_layers}), "
+          f"{out['plain']['wkv_launches']} plain (want 0)")
+    out["logit_abs"] = diffs
+    k, pl = out["kernel"], out["plain"]
+    per_call = ("not measured (no device event traced)"
+                if k["wkv_ms_per_call"] is None
+                else f"{k['wkv_ms_per_call']:.4f} ms")
+    (d16, big16), (d32, _) = diffs["bfloat16"], diffs["float32"]
+    print(f"[rwkv6 long prompt] {bf16[0].name}, one {WKV_LONG}-token prompt "
+          f"through the forward in bf16: kernel {k['wall_s'] * 1e3:.1f} ms "
+          f"wall, device busy {k['device_busy_ms']:.2f} ms, WKV "
+          f"{k['wkv_launches']} calls, device time of each {per_call}; "
+          f"plain chunked {pl['wall_s'] * 1e3:.1f} ms wall, device busy "
+          f"{pl['device_busy_ms']:.2f} ms; logits max abs diff over all "
+          f"{WKV_LONG} positions: bf16 {d16:.3g} ({d16 / big16:.4f} of the "
+          f"largest logit {big16:.3g}; the bf16 tolerance is {BF16_TOL}), "
+          f"float32 {d32:.3g} (tolerance {F32_TOL} absolute)")
+    check(d32 <= F32_TOL, f"rwkv6 long prompt: the WKV kernel's float32 "
+          f"logits differ from the plain path's by {d32} > {F32_TOL}")
+    return out
 
 
 def phase_rwkv6_serving(torch):
@@ -1387,28 +1505,56 @@ def phase_rwkv6_serving(torch):
     print("[rwkv6] greedy streams, kernel vs plain chunked recurrence: "
           + ("equal" if div is None
              else f"first differ at (rid, token) {div}"))
-    # the first prefill row and decode step through both WKV paths: finite,
-    # and within the bf16 tolerance of the largest logit
-    rows, steps = {}, {}
-    for name, ctx in (("kernel", kern), ("plain", plain)):
-        tok = torch.argmax(rows["kernel"]) if rows else None
-        rows[name], steps[name] = first_logits(
-            torch, tf, cfg, params, ctx, requests[0].prompt, ecfg, tok)
-    check(all(bool(torch.isfinite(x).all())
-              for x in (*rows.values(), *steps.values())),
-          "rwkv6: non-finite logits")
-    scale = max(float(rows["plain"].float().abs().max()),
-                float(steps["plain"].float().abs().max()))
-    e = {"prefill_abs": _max_err(rows["kernel"], rows["plain"]),
-         "decode_abs": _max_err(steps["kernel"], steps["plain"]),
-         "largest_logit": scale}
-    report["logit_errs"] = e
-    print(f"[rwkv6] bf16 logits, WKV kernel vs plain chunked recurrence: "
-          f"first prefill row max abs diff {e['prefill_abs']:.3g}, first "
-          f"decode step {e['decode_abs']:.3g} (tolerance {BF16_TOL} "
-          f"relative to the largest logit {scale:.3g})")
-    check(max(e["prefill_abs"], e["decode_abs"]) <= BF16_TOL * scale,
-          f"rwkv6: the WKV kernel's logits differ from the plain path's: {e}")
+    # the first prefill row and decode step of the first WKV_PROMPTS
+    # requests through the WKV kernel and the plain chunked recurrence,
+    # held in float32 (absolute, as phase 3's float32 check).  In bf16 the
+    # 24 layers turn float32 rounding differences of the WKV output into
+    # bf16 rounding flips that the two plain paths, the chunked recurrence
+    # and the sequential scan, show as well, so the bf16 figures are
+    # printed beside the plain paths' drift
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = convert.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    e = {}
+    for dname, c, ps in (("bfloat16", cfg, params),
+                         ("float32", cfg32, params32)):
+        for req in requests[:WKV_PROMPTS]:
+            rows, steps = {}, {}
+            for name, ctx in (("kernel", kern), ("plain", plain),
+                              ("scan", kern)):
+                tok = torch.argmax(rows["kernel"]) if rows else None
+                with _wkv_scan(name == "scan"):
+                    rows[name], steps[name] = first_logits(
+                        torch, tf, c, ps, ctx, req.prompt, ecfg, tok)
+            check(all(bool(torch.isfinite(x).all())
+                      for x in (*rows.values(), *steps.values())),
+                  f"rwkv6: non-finite {dname} logits")
+            big = (max(float(rows["plain"].float().abs().max()),
+                       float(steps["plain"].float().abs().max()))
+                   if dname == "bfloat16" else 1.0)
+            for name in ("kernel", "scan"):
+                e.setdefault((dname, name), []).append(
+                    max(_max_err(rows[name], rows["plain"]),
+                        _max_err(steps[name], steps["plain"])) / big)
+    report["logit_errs"] = {f"{d} {n}": v for (d, n), v in e.items()}
+
+    def listed(key):
+        return ", ".join(f"{x:.3g}" for x in e[key])
+    print(f"[rwkv6] float32 logits, max abs diff from the plain chunked "
+          f"recurrence, first prefill row and decode step of "
+          f"{WKV_PROMPTS} prompts: WKV kernel {listed(('float32', 'kernel'))}"
+          f" (tolerance {F32_TOL} absolute), sequential scan (plain) "
+          f"{listed(('float32', 'scan'))}")
+    print(f"[rwkv6] bf16 logits, the same relative to the largest logit: "
+          f"WKV kernel {listed(('bfloat16', 'kernel'))}, sequential scan "
+          f"(plain) {listed(('bfloat16', 'scan'))} (the bf16 tolerance is "
+          f"{BF16_TOL})")
+    check(max(e["float32", "kernel"]) <= F32_TOL,
+          f"rwkv6: the WKV kernel's float32 logits differ from the plain "
+          f"path's by {max(e['float32', 'kernel'])} > {F32_TOL}")
+    rows = steps = None
+    report["long_prompt"] = long_prompt(torch, tf, (cfg, params),
+                                        (cfg32, params32), kern, plain)
     params = leaves = None
     torch.cuda.empty_cache()
     return report
@@ -1955,7 +2101,12 @@ def phase_router_kernel(torch, report):
 # (B, H, T, hs, chunk): the cases of tests/test_kernels.py (the JAX
 # kernel's), then rwkv6-1.6b's serving prefill (48 tokens, chunk
 # gcd(32, 48) = 16) and a long prompt
-WKV_CASES = [(2, 2, 64, 16, 16), (1, 4, 32, 8, 8), (2, 1, 96, 32, 32)]
+WKV_CASES = [(2, 2, 64, 16, 16), (1, 4, 32, 8, 8), (2, 1, 96, 32, 32),
+             (3, 5, 64, 64, 32),      # B * H = 15: no column tile divides it
+             (1, 2, 1056, 64, 32)]    # 33 tiles: a carry segment of one
+# transposed (B, T, H, hs) views, as the model passes them: one chunk
+# record stream of 16-token tiles, one of 32 with a ragged last tile
+WKV_VIEWS = [(1, 32, 48, 64, 16), (2, 4, 80, 64, 16)]
 WKV_TIMED = [(1, 32, 48, 64, 16), (1, 32, 4096, 64, 32)]
 WKV_TOL = 2e-4           # of max(1, the largest |plain value|): float32 sums
                          # in other orders (the plain chunked version and the
@@ -1989,9 +2140,10 @@ def wkv6_work(B, H, T, hs, chunk):
 
 def phase_wkv6_kernel(torch, report):
     """wkv6_chunked against its plain version (the chunked recurrence) and
-    the sequential scan: the JAX test cases, w = 1e-6, pads frozen with w =
-    1 and k = 0, the final state; then timed at the serve and long shapes;
-    rows added to ``report["timing"]``."""
+    the sequential scan: the JAX test cases and the tiles' edge cases, w =
+    1e-6, transposed views read in place, pads frozen with w = 1 and k = 0,
+    the final state; then timed at the serve and long shapes; rows added
+    to ``report["timing"]``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as wk
     inp = Inputs(torch)
@@ -2018,6 +2170,25 @@ def phase_wkv6_kernel(torch, report):
             errs[key] = max(held(f"{key} o", o, po), held(f"{key} S", S, pS),
                             held(f"{key} o vs scan", o, so),
                             held(f"{key} S vs scan", S, sS))
+    # the model's layout: transposed (B, T, H, hs) views, read through
+    # their strides; the output comes back laid out as r
+    for B, H, T, hs, chunk in WKV_VIEWS:
+        *btsh, _ = wkv6_inputs(torch, inp, B, T, H, hs)
+        r, k, v, w = (x.transpose(1, 2) for x in btsh)
+        u = inp.randn(H, hs, dtype=torch.float32) * 0.1
+        for decay in (None, 1e-6):
+            ww = w if decay is None else torch.full_like(w, decay)
+            o, S = wk.wkv6_chunked(r, k, v, ww, u, chunk=chunk)
+            check(o.transpose(1, 2).is_contiguous(),
+                  f"wkv6_chunked view {(B, H, T, hs)}: o strides "
+                  f"{o.stride()}, not laid out as r {r.stride()}")
+            dense = [x.contiguous() for x in (r, k, v, ww)]
+            po, pS = ref.wkv6_chunked_state(*dense, u, chunk)
+            so, sS = ref.wkv6_scan(*dense, u)
+            key = ("view", B, H, T, hs, chunk, decay)
+            errs[key] = max(held(f"{key} o", o, po), held(f"{key} S", S, pS),
+                            held(f"{key} o vs scan", o, so),
+                            held(f"{key} S vs scan", S, sS))
     # pads frozen (w = 1, k = 0 past the true length): the final state is
     # the unpadded prompt's, and the live outputs are unchanged
     B, H, T, hs, chunk = WKV_TIMED[0]
@@ -2033,7 +2204,8 @@ def phase_wkv6_kernel(torch, report):
           f"(B, H, T, hs, chunk) in {WKV_CASES + WKV_TIMED}, each with drawn "
           f"decays and with w = 1e-6, output and final state within "
           f"{WKV_TOL} of the largest value of the plain chunked version and "
-          f"of the sequential scan (worst {max(errs.values()):.3g}); pads "
+          f"of the sequential scan, and transposed (B, T, H, hs) views "
+          f"{WKV_VIEWS} read in place (worst {max(errs.values()):.3g}); pads "
           f"frozen past {WKV_PAD_LEN} of {T} tokens give the unpadded "
           f"prompt's state ({errs['pads']:.3g})")
 
@@ -2081,6 +2253,105 @@ def phase_wkv6_kernel(torch, report):
               f"(largest value {t['largest_value']:.3g})")
     report["timing"]["wkv6_chunked"] = rows
     return report
+
+
+# -- the WKV kernel in turns with another tree's ----------------------------
+
+WKV_TURNS = 30           # timed calls of each timed shape, a probe
+WKV_SERVE_RUNS = 3       # measured dense serve runs, a probe
+
+
+def wkv6_probe(torch, root):
+    """Measure the WKV kernel of the tree at ``root``, whose ``src`` goes
+    first on the path: each ``WKV_TIMED`` shape behind the spin
+    (``WKV_TURNS`` calls, L2 flushed), and rwkv6-1.6b's dense serve run
+    with the kernel (as phase 5 runs it: ``WKV_SERVE_RUNS`` measured runs
+    after a warm-up, TTFT and TPOT p50 each, then one profiled run: the
+    device ms of every WKV call).  Uses only what every tree's package
+    since the WKV kernel landed offers."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve() / "src"))
+    from repro_torch import convert
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (EngineConfig, ServingEngine,
+                                     TrafficConfig, generate, make_backend)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(["wkv6"])
+    dev = torch.device("cuda")
+    inp = Inputs(torch)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {"root": str(root), "cold_ms": {}, "serve": []}
+    for B, H, T, hs, chunk in WKV_TIMED:
+        r, k, v, w, u = wkv6_inputs(torch, inp, B, H, T, hs)
+        fn = (lambda r=r, k=k, v=v, w=w, u=u, c=chunk:
+              wk.wkv6_chunked(r, k, v, w, u, chunk=c))
+        out["cold_ms"][f"T={T}"] = _time_in_turns(
+            torch, {"kernel": fn}, flush, WKV_TURNS)["kernel"]
+    cfg = get_arch("rwkv6-1.6b")
+    params = convert.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    requests = generate(TrafficConfig(n_requests=16,
+                                      vocab_size=cfg.vocab_size, seed=0))
+    ecfg = EngineConfig(n_slots=8, max_len=512)
+    ctx = tf.ModelCtx(attn_chunk=8, use_kernels=True)
+
+    def run():
+        return ServingEngine(make_backend(cfg, params, ctx, device=dev),
+                             ecfg).run(requests)
+
+    run()                                   # warm-up
+    for _ in range(WKV_SERVE_RUNS):
+        summary = run()[2]
+        out["serve"].append({"ttft_p50_ms": summary["ttft_s"]["p50"] * 1e3,
+                             "tpot_p50_ms": summary["tpot_s"]["p50"] * 1e3})
+    events = _device_events(torch, run)
+    # this tree's two kernels, or the one-kernel design before them
+    out["wkv_call_ms"] = max((_calls_ms(events, WKV_TAGS["wkv6_chunked"]),
+                              _calls_ms(events, ("wkv6_kernel",))), key=len)
+    return out
+
+
+def wkv6_against(torch, other):
+    """The WKV kernel of the tree at ``other`` and this tree's in turns,
+    each measured by :func:`wkv6_probe` in a process of its own, in the
+    order other, this, this, other; prints the medians and quartiles of
+    the pooled figures of each tree."""
+    import statistics
+    runs = {"other": [], "this": []}
+    for name, root in (("other", other), ("this", ROOT), ("this", ROOT),
+                       ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--wkv6-probe",
+             str(root)], capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0,
+              f"wkv6 probe of {root} failed: {proc.stderr[-3000:]}")
+        runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"[wkv6 turns] probe of {name} ({root}) done", flush=True)
+
+    def stats(xs):
+        q1, med, q3 = statistics.quantiles(xs, n=4)
+        return {"median": med, "q1": q1, "q3": q3, "n": len(xs)}
+
+    result = {}
+    for name, probes in runs.items():
+        pooled = {f"cold {key} ms": [x for p in probes
+                                     for x in p["cold_ms"][key]]
+                  for key in probes[0]["cold_ms"]}
+        pooled["serve WKV device ms a call"] = [
+            x for p in probes for x in p["wkv_call_ms"]]
+        for key in ("ttft_p50_ms", "tpot_p50_ms"):
+            pooled[f"serve {key}"] = [s[key] for p in probes
+                                      for s in p["serve"]]
+        result[name] = {key: stats(xs) for key, xs in pooled.items()}
+    for key in result["this"]:
+        a, b = result["other"][key], result["this"][key]
+        print(f"[wkv6 turns] {key}: other tree median {a['median']:.5f} "
+              f"(quartiles {a['q1']:.5f}-{a['q3']:.5f}, n {a['n']}), this "
+              f"tree {b['median']:.5f} ({b['q1']:.5f}-{b['q3']:.5f}, n "
+              f"{b['n']})")
+    return result
 
 
 def check_autograd_guard(torch):
@@ -2437,6 +2708,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="",
                     help="also write the full report (every case's error, "
                          "the timings, the serve summaries) as JSON here")
+    ap.add_argument("--wkv6-against", default="", metavar="TREE",
+                    help="instead of the phases: time the WKV kernel of "
+                         "the checkout at TREE and this one's in turns "
+                         "(the timed shapes and rwkv6's dense serve run)")
+    ap.add_argument("--wkv6-probe", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     # cuBLAS on a fixed workspace configuration, which torch requires to run
     # cuBLAS under deterministic algorithms (the training phase)
@@ -2446,6 +2722,9 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.wkv6_probe:
+        print(json.dumps(wkv6_probe(torch, args.wkv6_probe)))
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch  # noqa: F401
@@ -2453,6 +2732,14 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 2
+    if args.wkv6_against:
+        try:
+            result = wkv6_against(torch, pathlib.Path(args.wkv6_against))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"wkv6_turns": result}))
+        return 0
     report = {"phase_s": {}}
 
     def timed(name, fn, *args):

@@ -109,6 +109,8 @@ def rwkv6_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         chunk = min(wkv_chunk, T)
         if T % chunk:
             chunk = math.gcd(chunk, T)
+        # the kernel reads the transposed views through their strides and
+        # lays o out as r: (B, T, H, hs) in memory, so no copy either way
         o, S_f = ops.wkv6_chunked(*_to_bhts(r, k, v, w), p["u"], chunk=chunk,
                                   return_state=True)
         out = o.transpose(1, 2)

@@ -87,18 +87,25 @@ def _t(*xs):
 @pytest.mark.parametrize("B,H,T,hs,chunk,decay", [
     (2, 2, 64, 16, 16, None), (1, 4, 32, 8, 8, None),
     (2, 1, 96, 32, 32, None), (1, 2, 32, 8, 8, 1e-6),
+    (1, 4, 48, 64, 16, None), (1, 4, 48, 64, 16, 1e-6),
+    (2, 3, 80, 64, 16, None),
 ])
 def test_plain_wkv6_matches_pallas(B, H, T, hs, chunk, decay):
     """The sequential scan, the chunked recurrence, ``ops.wkv6_chunked``
     (both impls) and the kernel wrapper on CPU tensors against the Pallas
-    kernel in interpret mode, the JAX test cases and its near-total decay
-    (w = 1e-6) among them."""
+    kernel in interpret mode: the JAX test cases and its near-total decay
+    (w = 1e-6), rwkv6-1.6b's head width at its 48-token serve prefill, and
+    a length the CUDA kernel cuts into 32-token tiles with a ragged last
+    one.  The wrapper also takes r, k, v, w as transposed (B, T, H, hs)
+    views, as the model passes them, and gives the contiguous result."""
     r, k, v, w, u = _streams(B, H, T, hs)
     if decay is not None:
         w = np.full_like(w, decay)
     want = np.asarray(jops.wkv6_chunked(*map(jnp.asarray, (r, k, v, w, u)),
                                         chunk=chunk))
     tr, tk, tv, tw, tu = _t(r, k, v, w, u)
+    views = [torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+             .transpose(1, 2) for x in (r, k, v, w)]
     got = {"scan": ref.wkv6_chunked(tr, tk, tv, tw, tu),
            "chunked": ref.wkv6_chunked_state(tr, tk, tv, tw, tu, chunk)[0],
            "ops_ref": ops.wkv6_chunked(tr, tk, tv, tw, tu, chunk=chunk,
@@ -106,6 +113,13 @@ def test_plain_wkv6_matches_pallas(B, H, T, hs, chunk, decay):
            "ops_kernel": ops.wkv6_chunked(tr, tk, tv, tw, tu, chunk=chunk),
            "wrapper": wkv6_kernel.wkv6_chunked(tr, tk, tv, tw, tu,
                                                chunk=chunk)[0]}
+    o_views, S_views = wkv6_kernel.wkv6_chunked(*views, tu, chunk=chunk)
+    o_dense, S_dense = wkv6_kernel.wkv6_chunked(tr, tk, tv, tw, tu,
+                                                chunk=chunk)
+    np.testing.assert_allclose(o_views.numpy(), o_dense.numpy(),
+                               **STATE_TOL)
+    np.testing.assert_allclose(S_views.numpy(), S_dense.numpy(),
+                               **STATE_TOL)
     for name, o in got.items():
         assert np.isfinite(o.numpy()).all(), name
         np.testing.assert_allclose(o.numpy(), want, **KERNEL_TOL,
