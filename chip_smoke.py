@@ -60,7 +60,19 @@ failing the run with a non-zero exit when its check fails:
    logits (experts 0..k-1, gates 1/k) and a row of duplicated maxima (the
    lowest index first): probs and gates within 1e-6, indices equal except
    on rows whose top k + 1 probs hold a near-tie (counted); timed beside
-   ``torch.softmax`` -> ``torch.topk`` -> normalise.  The chunked WKV6
+   ``torch.softmax`` -> ``torch.topk`` -> normalise.  The route entry
+   point of the same kernel (router, capacity places, dispatch, combine,
+   loads in one launch) at the cases of ``ROUTE_CASES`` (decode, prompt
+   buckets, 16 groups of 256, E 128 / k 8, decode over 40 and 64 slots
+   (several blocks whose counts meet through the ticket), capacity 0.5,
+   half the tokens dead, a 1024-token group, a C of 5): gates, idx and
+   probs bit-identical
+   to the router entry's, places, dispatch, combine and loads bit-equal
+   (``torch.equal``) to the plain dispatch fed that routing, gates and
+   probs within 1e-6 of the whole plain version and idx, places, dispatch
+   and loads equal to it where no near-tie reorders experts; timed beside
+   the plain version, the router kernel followed by the plain dispatch
+   (the design it replaced) and an empty kernel.  The chunked WKV6
    kernel at the JAX kernel test's shapes, B * H = 15, 33 tiles (a ragged
    carry segment), rwkv6-1.6b's serving prefill (1, 32, 48, 64) and a
    long prompt (1, 32, 4096, 64), each with drawn decays and with w =
@@ -91,19 +103,20 @@ failing the run with a non-zero exit when its check fails:
    busy share, its top kernels and the attention kernels' device time per
    call on the main path (a decode call's split and merge kernels
    together, the union of their intervals);
-4. serving the MoE archs at full width in bf16 with the router kernel on
+4. serving the MoE archs at full width in bf16 with the route kernel on
    every MoE FFN and both attention kernels on: Moonlight-16B-A3B cut to
    12 of its 48 layers (7.52B parameters, 15.0 GB) under the dense,
-   paged, int8 and paged int8 layouts and once with the plain router, and
-   Qwen3-30B-A3B (qk-norm, 128 experts top 8) cut to 4 layers, dense; the
-   same 16 requests on 8 slots of 512.  Each run: every request served,
-   ``moe_router`` launched once per layer per prefill and decode step (0
-   with the plain router), the attention kernels as in phase 3; a
-   profile of each gives the device's busy share and the router kernel's
-   device time per launch.  The router kernel's and the plain router's
-   greedy streams are compared (the first divergence printed), and their
-   first prefill row and decode step logits must be finite and within
-   2e-2 of the largest logit;
+   paged, int8 and paged int8 layouts and dense once with the plain
+   router, and Qwen3-30B-A3B (qk-norm, 128 experts top 8) cut to 4
+   layers, dense; the same 16 requests on 8 slots of 512.  Each run:
+   every request served, ``moe_route`` launched once per layer per
+   prefill and decode step (0 with the plain router; ``moe_router`` 0 on
+   every run: the route kernel carries its arithmetic), the attention
+   kernels as in phase 3; a profile of each gives the device's busy
+   share and the route kernel's device time per call (its prompt and
+   decode kernels).  The two Moonlight dense runs' greedy streams must be
+   equal, and the route kernel's and the plain router's first prefill row
+   and decode step logits finite and within 2e-2 of the largest logit;
 5. serving rwkv6-1.6b at full width in bf16 (24 layers, d_model 2048,
    1.6B parameters) under the dense and paged layouts with every prefill's
    WKV through the kernel, and dense once with the plain chunked
@@ -158,8 +171,17 @@ turns, each in a process of its own (TREE, this, this, TREE): the timed
 shapes behind the spin and rwkv6-1.6b's dense serve run (TTFT and TPOT
 p50, the WKV device time of every call), and prints each tree's medians
 and quartiles.
+
+  python3 chip_smoke.py --moe-against TREE
+
+likewise serves the MoE archs of phase 4 with the kernels on, with the
+checkout at TREE and with this one in turns: Moonlight dense's TTFT and
+TPOT p50, the routing's device time of every MoE layer call, the device
+kernels of one decode step, and the greedy streams of Moonlight under
+the four layouts and of Qwen3 dense, which must be equal across trees.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -296,6 +318,8 @@ KERNELS = {
                      "src/repro/kernels/fused_adamw.py:29"),
     "moe_router": ("src/repro_torch/kernels/csrc/moe_router.cu",
                    "src/repro/kernels/moe_router.py:39"),
+    "moe_route": ("src/repro_torch/kernels/csrc/moe_router.cu",
+                  "src/repro/kernels/moe_router.py:39"),
     "wkv6_chunked": ("src/repro_torch/kernels/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6.py:66"),
 }
@@ -311,14 +335,24 @@ NO_LIBRARY = {
     "topk_sparsify": "no PyTorch call thresholds rows at the k-th largest "
                      "distinct magnitude",
     "wkv6_chunked": "no PyTorch call computes the WKV6 recurrence",
+    "moe_route": "no PyTorch call builds capacity-limited dispatch and "
+                 "combine tensors",
 }
+# what a kernel takes over beyond its TPU kernel: the JAX code around it
+ALSO_REPLACES = {"moe_route": "src/repro/models/moe.py:97-117"}
+# kernels that the main path no longer launches: why (the kernels line
+# reads their launches from the main path all the same, 0)
+OFF_PATH = {"moe_router": "off the serve path: moe_route's route_row "
+                          "computes its arithmetic there; held against its "
+                          "plain version in phase 2"}
 
 
 # kernels that must build without register spills (ptxas -v)
 NO_SPILLS = ("flash_attention_mma_kernel", "scatter_add_rows_kernel",
              "flash_decode_split_kernel", "flash_decode_merge_kernel",
              "topk_rows_kernel", "wkv6_intra_kernel", "wkv6_span_kernel",
-             "wkv6_carry_kernel")
+             "wkv6_carry_kernel", "moe_route_kernel",
+             "moe_route_decode_kernel")
 
 
 class SmokeFailure(Exception):
@@ -353,6 +387,7 @@ def _wrappers():
             "scatter_add_rows": eo.scatter_add_rows,
             "adamw_update": fa.adamw_update,
             "moe_router": mr.moe_router,
+            "moe_route": mr.moe_route,
             "wkv6_chunked": wk.wkv6_chunked}
 
 
@@ -1240,14 +1275,17 @@ def phase_serving(torch):
 # the smoke run's time beside the RecLLM phases
 MOE_SERVE = [("moonlight", "moonshot-v1-16b-a3b", 12),
              ("qwen3", "qwen3-moe-30b-a3b", 4)]
-ROUTER_TAGS = dict(ATTN_TAGS, moe_router=("moe_router_kernel",))
+# "moe_route_" names both route kernels (moe_route_kernel for a prompt,
+# moe_route_decode_kernel for a decode step) and not moe_router_kernel
+ROUTER_TAGS = dict(ATTN_TAGS, moe_router=("moe_router_kernel",),
+                   moe_route=("moe_route_",))
 
 
 def phase_moe_serving(torch):
     """The MoE archs at full width in bf16 through ``repro_torch.serving``
-    with every MoE FFN routed through the router kernel: Moonlight under
-    the dense, paged, int8 and paged int8 layouts and once with the plain
-    router; Qwen3 (qk-norm, 128 experts top 8, GQA 32 on 4) dense."""
+    with every MoE FFN routed through the route kernel: Moonlight under
+    the dense, paged, int8 and paged int8 layouts and dense once with the
+    plain router; Qwen3 (qk-norm, 128 experts top 8, GQA 32 on 4) dense."""
     from repro_torch import convert
     from repro_torch.config import get_arch
     from repro_torch.models import transformer as tf
@@ -1295,7 +1333,7 @@ def phase_moe_serving(torch):
         for name, ctx, layout, dkern in runs:
             per_layer = {"flash_attention": "prefill", dkern: "decode"}
             if ctx.use_kernels:
-                per_layer["moe_router"] = "both"
+                per_layer["moe_route"] = "both"
             key = f"{short}_{name}"
             fn = (lambda ctx=ctx, layout=layout: run(ctx, layout))
             report["runs"][key], streams[name] = serve_measured(
@@ -1304,14 +1342,14 @@ def phase_moe_serving(torch):
                 torch, key, fn, report["runs"][key]["wall_s"], ROUTER_TAGS)
 
         if short == "moonlight":
+            n_tok = sum(len(v) for v in streams["dense"].values())
             div = _first_divergence(streams["dense"],
                                     streams["dense_plain_router"])
             report["router_stream_divergence"] = div
-            n_tok = sum(len(v) for v in streams["dense"].values())
-            print(f"[moe {short}] greedy streams, router kernel vs plain "
-                  "router: " + ("equal" if div is None else
-                                f"first differ at (rid, token) {div}")
-                  + f" ({n_tok} tokens)")
+            check(div is None, f"{arch}: greedy streams of the route kernel "
+                  f"and of the plain router differ at (rid, token) {div}")
+            print(f"[moe {short}] greedy streams, route kernel == plain "
+                  f"router ({n_tok} tokens)")
             # the first prefill row and decode step through both routers:
             # finite, and within the bf16 tolerance of the largest logit
             rows, steps = {}, {}
@@ -1329,13 +1367,13 @@ def phase_moe_serving(torch):
                  "decode_abs": _max_err(steps["kernel"], steps["plain"]),
                  "largest_logit": scale}
             report["router_logit_errs"] = e
-            print(f"[moe {short}] bf16 logits, router kernel vs plain "
+            print(f"[moe {short}] bf16 logits, route kernel vs plain "
                   f"router: first prefill row max abs diff "
                   f"{e['prefill_abs']:.3g}, first decode step "
                   f"{e['decode_abs']:.3g} (tolerance {BF16_TOL} relative to "
                   f"the largest logit {scale:.3g})")
             check(max(e["prefill_abs"], e["decode_abs"]) <= BF16_TOL * scale,
-                  f"{arch}: the router kernel's logits differ from the "
+                  f"{arch}: the route kernel's logits differ from the "
                   f"plain router's: {e}")
         params = leaves = None               # free the weights for the next
         torch.cuda.empty_cache()
@@ -2095,6 +2133,157 @@ def phase_router_kernel(torch, report):
               f"({t['bound_by']}), max abs err {t['max_abs_err']:.3g}")
     report["timing"]["moe_router"] = rows
     report["router_near_tie_rows"] = near_ties
+    return route_cases(torch, inp, flush, report)
+
+
+# (g, G, E, k, capacity factor or C, dead share, dtype): Moonlight's decode
+# (a group a slot) and prompt buckets, a long prefill (16 groups of 256),
+# Qwen3's E 128 / k 8 at decode and a bucket, capacity 0.5 (drops), half
+# the tokens dead, the reduced archs' 1024-token group, and a C of 5 that
+# no 16-byte vector divides (rows written an element at a time)
+ROUTE_CASES = [(8, 1, 64, 6, 1.25, 0.0, "bfloat16"),
+               (1, 24, 64, 6, 1.25, 0.0, "bfloat16"),
+               (1, 64, 64, 6, 1.25, 0.0, "bfloat16"),
+               (16, 256, 64, 6, 1.25, 0.0, "bfloat16"),
+               (8, 1, 128, 8, 1.25, 0.0, "bfloat16"),
+               (40, 1, 64, 6, 1.25, 0.0, "bfloat16"),   # decode, > 32
+               (64, 1, 128, 8, 1.25, 0.3, "bfloat16"),  # slots: 2 blocks
+               (1, 64, 128, 8, 1.25, 0.0, "bfloat16"),
+               (2, 64, 64, 6, 0.5, 0.0, "float32"),
+               (2, 48, 64, 6, 1.25, 0.5, "bfloat16"),
+               (1, 1024, 8, 2, 1.25, 0.3, "bfloat16"),
+               (2, 40, 16, 4, 5, 0.2, "float16")]     # the first: main path
+
+
+def route_inputs(torch, inp, g, G, E, dead):
+    """Seeded (g, G, E) f32 logits with a per-expert skew (hot experts
+    overflow their queues), token 0 of group 0 all equal (experts 0..k-1),
+    and a live mask with ``dead`` of the tokens out (None when 0)."""
+    x = inp.randn(g, G, E, dtype=torch.float32) \
+        + 1.5 * inp.randn(E, dtype=torch.float32)
+    x[0, 0] = 0.25
+    live = None
+    if dead:
+        live = torch.rand((g, G), generator=inp.gen, device=inp.dev) >= dead
+    return x, live
+
+
+def route_bytes(g, G, E, k, C, esz, live):
+    """Bytes the route must move: the logits (and live mask) read once, and
+    gates, idx, places, probs, dispatch, combine, loads and top-1 shares
+    written once."""
+    return (g * G * E * 4 + (g * G if live is not None else 0)
+            + 3 * g * G * k * 4 + g * G * E * 4 + 2 * g * G * E * C * esz
+            + 2 * E * 4)
+
+
+def route_cases(torch, inp, flush, report):
+    """moe_route on the card: routing bit-identical to moe_router's on the
+    same logits; places, dispatch, combine, loads bit-equal to the plain
+    capacity dispatch fed that routing; against the whole plain version
+    (its own router), gates and probs within ROUTER_TOL, and idx, places,
+    dispatch and loads equal where no row holds a near-tie.  Each case
+    then timed behind the spin beside the plain version, the design it
+    replaced (the router kernel, then the plain dispatch) and an empty
+    kernel."""
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import _capacity
+
+    def router_then_dispatch(x, k, C, live, dt):
+        g, G, E = x.shape
+        gates, idx, probs = mr.moe_router(x.reshape(-1, E), k)
+        return ref.moe_dispatch(gates.reshape(g, G, k), idx.reshape(g, G, k),
+                                probs.reshape(g, G, E), C, live, dt)
+
+    errs, drops, tied_cases, rows = [], [], 0, []
+    floor_ms = _time_ms(torch, lambda: torch.cuda._sleep(0), flush)
+    for g, G, E, k, cap, dead, dname in ROUTE_CASES:
+        C = cap if isinstance(cap, int) else _capacity(G, k, E, cap)
+        dt = getattr(torch, dname)
+        x, live = route_inputs(torch, inp, g, G, E, dead)
+        case = f"moe_route (g={g}, G={G}, E={E}, k={k}, C={C}, {dname})"
+        r = mr.moe_route(x, k, C, live, dt)
+        rg, ri, rp = mr.moe_router(x.reshape(-1, E), k)
+        check(torch.equal(r.gates.reshape(-1, k), rg)
+              and torch.equal(r.idx.reshape(-1, k), ri)
+              and torch.equal(r.probs.reshape(-1, E), rp),
+              f"{case}: gates, idx or probs differ from moe_router's")
+        want = ref.moe_dispatch(r.gates, r.idx, r.probs, C, live, dt)
+        for name in ("place", "dispatch", "combine", "load"):
+            check(torch.equal(getattr(r, name), getattr(want, name)),
+                  f"{case}: {name} differs from the plain dispatch of the "
+                  "same routing")
+        check(_max_err(r.top1, want.top1) <= 1e-6,
+              f"{case}: top-1 shares differ from the plain dispatch's")
+        ticket = mr._ticket(x.device, torch.cuda.current_stream().cuda_stream)
+        check(int(ticket[0]) == 0, f"{case}: the ticket reads "
+              f"{int(ticket[0])} after the launch, not 0")
+        check(r.idx[0, 0].tolist() == list(range(k)),
+              f"{case}: the equal-logit row routes to {r.idx[0, 0].tolist()}")
+        plain = ref.moe_route(x, k, C, live, dt)
+        err = max(_max_err(r.gates, plain.gates),
+                  _max_err(r.probs, plain.probs))
+        check(err <= ROUTER_TOL, f"{case}: gates or probs {err} from the "
+              f"plain version > {ROUTER_TOL}")
+        top = torch.topk(plain.probs, min(k + 1, E), dim=-1).values
+        near = (top[..., :-1] - top[..., 1:] < ROUTER_TIE_GAP).any(-1)
+        near[0, 0] = False           # the equal-logit row: an exact tie
+        if bool(near.any()):
+            tied_cases += 1          # a near-tie may reorder experts
+        else:
+            for name in ("idx", "place", "dispatch", "load"):
+                check(torch.equal(getattr(r, name),
+                                  getattr(plain, name).to(
+                                      getattr(r, name).dtype)),
+                      f"{case}: {name} differs from the plain version")
+            cerr = _max_err(r.combine, plain.combine)
+            check(cerr <= ROUTER_TOL + torch.finfo(dt).eps,
+                  f"{case}: combine {cerr} from the plain version")
+        alive = (torch.ones((g, G), dtype=torch.bool, device=inp.dev)
+                 if live is None else live)
+        drops.append(int(((r.place >= C) & alive[..., None]).sum()))
+        errs.append(err)
+        esz = torch.empty((), dtype=dt).element_size()
+        t = {"shape": f"g={g} G={G} E={E} k={k} C={C} {dname}"
+                      + (f", {dead:.0%} dead" if dead else "")
+                      + (" (decode: a group a slot)" if G == 1 else "")
+                      + "; wrapper time, one launch",
+             "max_abs_err": err, "tol": ROUTER_TOL,
+             "ms": _time_ms(torch, lambda: mr.moe_route(x, k, C, live, dt),
+                            flush),
+             "plain_ms": _time_ms(
+                 torch, lambda: ref.moe_route(x, k, C, live, dt), flush),
+             "router_dispatch_ms": _time_ms(
+                 torch, lambda: router_then_dispatch(x, k, C, live, dt),
+                 flush),
+             "library_ms": None, "library_note": NO_LIBRARY["moe_route"],
+             "floor_ms": floor_ms,
+             "bytes": route_bytes(g, G, E, k, C, esz, live),
+             "ops_ms": g * G * E * (4 + 2 * k) / F32_OPS_PER_S * 1e3}
+        t["bytes_ms"] = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations")
+        rows.append(t)
+        print(f"[time moe_route] {t['shape']}: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, the router kernel + plain "
+              f"dispatch {t['router_dispatch_ms']:.4f} ms, an empty kernel "
+              f"{floor_ms:.4f} ms, bound {t['bound_ms']:.3g} ms "
+              f"({t['bound_by']}: {t['bytes']:,} bytes)")
+        report_gate(f"moe_route G={G} g={g}", t["ms"], None, None,
+                    round(t["router_dispatch_ms"], 4),
+                    "the router kernel + dispatch")
+    print(f"[kernels] moe_route: {len(ROUTE_CASES)} cases (g, G, E, k, "
+          f"capacity, dead share, dtype) in {ROUTE_CASES}: gates, idx and "
+          "probs bit-identical to moe_router's; places, dispatch, combine "
+          "and loads bit-equal to the plain dispatch of that routing; gates "
+          f"and probs within {ROUTER_TOL} of the plain version (worst "
+          f"{max(errs):.3g}), idx, places, dispatch and loads equal to it "
+          f"in every case without a near-tie ({tied_cases} with one); "
+          f"(token, slot) pairs dropped at the capacity: {drops}")
+    report["timing"]["moe_route"] = rows
+    report["route_drops"] = drops
     return report
 
 
@@ -2313,12 +2502,18 @@ def wkv6_probe(torch, root):
     return out
 
 
+def _pooled_stats(xs):
+    """Median, quartiles and count of the pooled figures of one tree."""
+    import statistics
+    q1, med, q3 = statistics.quantiles(xs, n=4)
+    return {"median": med, "q1": q1, "q3": q3, "n": len(xs)}
+
+
 def wkv6_against(torch, other):
     """The WKV kernel of the tree at ``other`` and this tree's in turns,
     each measured by :func:`wkv6_probe` in a process of its own, in the
     order other, this, this, other; prints the medians and quartiles of
     the pooled figures of each tree."""
-    import statistics
     runs = {"other": [], "this": []}
     for name, root in (("other", other), ("this", ROOT), ("this", ROOT),
                        ("other", other)):
@@ -2330,10 +2525,6 @@ def wkv6_against(torch, other):
         runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(f"[wkv6 turns] probe of {name} ({root}) done", flush=True)
 
-    def stats(xs):
-        q1, med, q3 = statistics.quantiles(xs, n=4)
-        return {"median": med, "q1": q1, "q3": q3, "n": len(xs)}
-
     result = {}
     for name, probes in runs.items():
         pooled = {f"cold {key} ms": [x for p in probes
@@ -2344,13 +2535,203 @@ def wkv6_against(torch, other):
         for key in ("ttft_p50_ms", "tpot_p50_ms"):
             pooled[f"serve {key}"] = [s[key] for p in probes
                                       for s in p["serve"]]
-        result[name] = {key: stats(xs) for key, xs in pooled.items()}
+        result[name] = {key: _pooled_stats(xs)
+                        for key, xs in pooled.items()}
     for key in result["this"]:
         a, b = result["other"][key], result["this"][key]
         print(f"[wkv6 turns] {key}: other tree median {a['median']:.5f} "
               f"(quartiles {a['q1']:.5f}-{a['q3']:.5f}, n {a['n']}), this "
               f"tree {b['median']:.5f} ({b['q1']:.5f}-{b['q3']:.5f}, n "
               f"{b['n']})")
+    return result
+
+
+# -- the MoE routing in turns with another tree's ----------------------------
+
+MOE_SERVE_RUNS = 3       # measured Moonlight dense serve runs, a probe
+
+
+@contextlib.contextmanager
+def expert_marker(torch):
+    """Within it, an empty kernel (``torch.cuda._sleep(0)``, a
+    ``spin_kernel``) is queued just before each MoE FFN's first expert
+    product, the einsum "gtec,gtd->egcd" with which ``moe_ffn`` starts its
+    experts (in this tree and the earlier ones): in a trace a layer call's
+    routing then lies between its router kernel's start and that marker."""
+    orig = torch.einsum
+
+    def einsum(eq, *operands, **kw):
+        if eq.replace(" ", "") == "gtec,gtd->egcd":
+            torch.cuda._sleep(0)
+        return orig(eq, *operands, **kw)
+
+    torch.einsum = einsum
+    try:
+        yield
+    finally:
+        torch.einsum = orig
+
+
+def routing_ms(events):
+    """Device ms of the routing of each MoE layer call in a trace taken
+    under :func:`expert_marker`: the union of the intervals of the kernels
+    from a router kernel's start (``moe_router_kernel`` in a tree before
+    the route kernel, else ``moe_route_kernel`` or
+    ``moe_route_decode_kernel``) up to the next marker (the route kernel
+    alone, or the router kernel and the plain dispatch's kernels)."""
+    out, cur = [], None
+    for name, s, e in events:
+        if "moe_route" in name:
+            cur = [(s, e)]
+        elif cur is not None and "spin_kernel" in name:
+            out.append(_busy_ms(cur))
+            cur = None
+        elif cur is not None:
+            cur.append((s, e))
+    return out
+
+
+def decode_step_kernels(torch, cfg, params, ctx, prompt, n_slots=8,
+                        max_len=512):
+    """(device kernels, device busy ms) of one decode step over ``n_slots``
+    slots of a dense cache after ``prompt``'s prefill into slot 0, traced
+    after a warm-up step."""
+    from repro_torch.serving import make_backend
+    dev = torch.device("cuda")
+    be = make_backend(cfg, params, ctx, device=dev)
+    cache = be.init_slots(n_slots, max_len)
+    padded = list(prompt) + [0] * (-len(prompt) % 8)
+    _, cache = be.prefill(cache, [padded], len(prompt), 0)
+    nxt = torch.zeros((n_slots, 1), dtype=torch.long, device=dev)
+    _, cache = be.decode(cache, nxt)
+    torch.cuda.synchronize()
+    events = _device_events(torch, lambda: be.decode(cache, nxt))
+    return len(events), _busy_ms([(s, e) for _, s, e in events])
+
+
+def moe_probe(torch, root):
+    """Serve the MoE archs of phase 4 with the tree at ``root`` (its ``src``
+    first on the path) and ``use_kernels``: the greedy streams of Moonlight
+    under the dense, paged, int8 and paged int8 layouts and of Qwen3 dense;
+    Moonlight dense's TTFT and TPOT p50 over ``MOE_SERVE_RUNS`` measured
+    runs, the routing's device ms of every MoE layer call in one traced run
+    (:func:`routing_ms`), its device busy share, and the device kernels of
+    one decode step.  Uses only what every tree's package since the router
+    kernel landed offers."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve() / "src"))
+    from repro_torch import convert
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (CacheLayout, EngineConfig,
+                                     ServingEngine, TrafficConfig, generate,
+                                     make_backend)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all(["moe_router", "flash_attention", "flash_decode"])
+    dev = torch.device("cuda")
+    ecfg = EngineConfig(n_slots=8, max_len=512)
+    ctx = tf.ModelCtx(attn_impl="flash", decode_impl="flash", attn_chunk=8,
+                      use_kernels=True)
+    out = {"root": str(root), "fused": hasattr(ops, "moe_route"),
+           "streams": {}, "serve": []}
+    for short, arch, layers in MOE_SERVE:
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        params = convert.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        requests = generate(TrafficConfig(n_requests=16,
+                                          vocab_size=cfg.vocab_size, seed=0))
+
+        def run(layout=None):
+            e = ecfg if layout is None else dataclasses.replace(
+                ecfg, layout=layout)
+            return ServingEngine(make_backend(cfg, params, ctx, layout=layout,
+                                              device=dev), e).run(requests)
+
+        layouts = [("dense", None)]
+        if short == "moonlight":
+            layouts += [(name, CacheLayout(impl="flash", **kw))
+                        for name, (kw, _) in LAYOUTS.items()]
+        for name, layout in layouts:
+            outputs = run(layout)[0]
+            out["streams"][f"{short}_{name}"] = {
+                str(rid): list(toks) for rid, toks in outputs.items()}
+        if short == "moonlight":
+            for _ in range(MOE_SERVE_RUNS):
+                t0 = time.perf_counter()
+                summary = run()[2]
+                out["serve"].append({
+                    "ttft_p50_ms": summary["ttft_s"]["p50"] * 1e3,
+                    "tpot_p50_ms": summary["tpot_s"]["p50"] * 1e3,
+                    "wall_s": time.perf_counter() - t0})
+            with expert_marker(torch):
+                events = _device_events(torch, run)
+            out["routing_ms"] = routing_ms(events)
+            out["busy_share"] = (_busy_ms([(s, e) for _, s, e in events])
+                                 / (out["serve"][-1]["wall_s"] * 1e3))
+            out["decode_step_kernels"], out["decode_step_busy_ms"] = \
+                decode_step_kernels(torch, cfg, params, ctx,
+                                    requests[0].prompt)
+        params = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_against(torch, other):
+    """The MoE routing of the tree at ``other`` and this tree's in turns,
+    each measured by :func:`moe_probe` in a process of its own, in the
+    order other, this, this, other; prints the medians and quartiles of the
+    pooled figures of each tree and checks that every greedy stream of
+    every probe equals the first probe's."""
+    runs = {"other": [], "this": []}
+    for name, root in (("other", other), ("this", ROOT), ("this", ROOT),
+                       ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--moe-probe",
+             str(root)], capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0,
+              f"moe probe of {root} failed: {proc.stderr[-3000:]}")
+        runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"[moe turns] probe of {name} ({root}) done", flush=True)
+    first = runs["other"][0]["streams"]
+    equal = {}
+    for key, want in first.items():
+        n_tok = sum(len(v) for v in want.values())
+        for name, probes in runs.items():
+            for probe in probes:
+                got = {int(r): v for r, v in probe["streams"][key].items()}
+                div = _first_divergence(
+                    {int(r): v for r, v in want.items()}, got)
+                check(div is None, f"{key}: the {name} tree's greedy "
+                      f"stream differs from the other tree's at (rid, "
+                      f"token) {div}")
+        equal[key] = n_tok
+    result = {"streams_equal": equal}
+    for name, probes in runs.items():
+        result[name] = {
+            "fused": probes[0]["fused"],
+            "routing device ms a MoE layer call": _pooled_stats(
+                [x for p in probes for x in p["routing_ms"]]),
+            "ttft_p50_ms": _pooled_stats(
+                [s["ttft_p50_ms"] for p in probes for s in p["serve"]]),
+            "tpot_p50_ms": _pooled_stats(
+                [s["tpot_p50_ms"] for p in probes for s in p["serve"]]),
+            "decode_step_kernels": [p["decode_step_kernels"]
+                                    for p in probes],
+            "decode_step_busy_ms": [p["decode_step_busy_ms"]
+                                    for p in probes],
+            "busy_share": [p["busy_share"] for p in probes]}
+    for key in ("routing device ms a MoE layer call", "ttft_p50_ms",
+                "tpot_p50_ms"):
+        a, b = result["other"][key], result["this"][key]
+        print(f"[moe turns] {key}: other tree median {a['median']:.5f} "
+              f"(quartiles {a['q1']:.5f}-{a['q3']:.5f}, n {a['n']}), this "
+              f"tree {b['median']:.5f} ({b['q1']:.5f}-{b['q3']:.5f}, n "
+              f"{b['n']})")
+    for key in ("decode_step_kernels", "decode_step_busy_ms", "busy_share"):
+        print(f"[moe turns] {key}: other tree {result['other'][key]}, this "
+              f"tree {result['this'][key]}")
+    print("[moe turns] greedy streams, this tree == the other tree: "
+          + ", ".join(f"{k} ({n} tokens)" for k, n in equal.items()))
     return result
 
 
@@ -2378,6 +2759,7 @@ def check_autograd_guard(torch):
                              (g.reshape(64, -1), inp.ints([0, 2] * 32), 4)),
         "adamw_update": (wrappers["adamw_update"], (g, g, g, g.abs(), g[:8])),
         "moe_router": (wrappers["moe_router"], (g.reshape(64, -1), 6)),
+        "moe_route": (wrappers["moe_route"], (g.reshape(8, 8, -1), 6, 8)),
         "wkv6_chunked": (wrappers["wkv6_chunked"],
                          (x4, x4, x4, x4.sigmoid(), g[:32].reshape(2, 16)))})
     for name, (fn, args) in calls.items():
@@ -2713,6 +3095,12 @@ def main(argv=None) -> int:
                          "the checkout at TREE and this one's in turns "
                          "(the timed shapes and rwkv6's dense serve run)")
     ap.add_argument("--wkv6-probe", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--moe-against", default="", metavar="TREE",
+                    help="instead of the phases: serve the MoE archs with "
+                         "the checkout at TREE and this one in turns "
+                         "(routing device time, TTFT, TPOT, kernels a "
+                         "decode step, greedy streams under every layout)")
+    ap.add_argument("--moe-probe", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     # cuBLAS on a fixed workspace configuration, which torch requires to run
     # cuBLAS under deterministic algorithms (the training phase)
@@ -2724,6 +3112,9 @@ def main(argv=None) -> int:
         return 2
     if args.wkv6_probe:
         print(json.dumps(wkv6_probe(torch, args.wkv6_probe)))
+        return 0
+    if args.moe_probe:
+        print(json.dumps(moe_probe(torch, args.moe_probe)))
         return 0
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -2739,6 +3130,14 @@ def main(argv=None) -> int:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
         print(json.dumps({"wkv6_turns": result}))
+        return 0
+    if args.moe_against:
+        try:
+            result = moe_against(torch, pathlib.Path(args.moe_against))
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"moe_turns": result}))
         return 0
     report = {"phase_s": {}}
 
@@ -2776,7 +3175,8 @@ def main(argv=None) -> int:
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(json.dumps(report, indent=1, default=str))
 
-    # launches: each kernel's count in the serve or train run of its own path
+    # launches: each kernel's count in the serve or train run of its own
+    # path (moe_router's in the MoE serve run, which no longer launches it)
     path_of = {"flash_attention": ("serving", "dense"),
                "flash_decode": ("serving", "dense"),
                **{kname: ("serving", name)
@@ -2789,6 +3189,7 @@ def main(argv=None) -> int:
                "scatter_add_rows": ("training", "flat_embed"),
                "adamw_update": ("training", "flat_fused_adamw"),
                "moe_router": ("moe_serving", "moonlight_dense"),
+               "moe_route": ("moe_serving", "moonlight_dense"),
                "wkv6_chunked": ("rwkv6_serving", "dense")}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -2797,6 +3198,9 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
+            **({"also_replaces": ALSO_REPLACES[name]}
+               if name in ALSO_REPLACES else {}),
+            **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
             "launches": report[phase]["runs"][run]["launches"][name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -53,6 +53,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
                                [_P] * 3 + [_L, _I, _L, _P]),
     "repro_adamw_update": ("fused_adamw", [_P] * 8 + [_L, _P]),
     "repro_moe_router": ("moe_router", [_P] * 4 + [_L, _I, _I, _P]),
+    "repro_moe_route": ("moe_router", [_P] * 10 + [_L] + [_I] * 5 + [_P]),
     "repro_wkv6_chunked": ("wkv6", [_P] * 8 + [ctypes.POINTER(_L), _L]
                            + [_I] * 4 + [_P]),
 }

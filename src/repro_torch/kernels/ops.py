@@ -7,11 +7,14 @@ point keyed off a :class:`~repro_torch.cache_layout.CacheLayout`, over the
 whole (dense | paged) x (16-bit | int8) x (ref | dense | flash) matrix.
 The gradient-compression entry points take the flat gradient, as JAX's do;
 so do the embedding gather / scatter-add and the fused AdamW update;
-:func:`moe_router` takes the (tokens, experts) router logits, and
+:func:`moe_router` takes the (tokens, experts) router logits and
+:func:`moe_route` the (groups, tokens, experts) ones, and
 :func:`wkv6_chunked` the RWKV-6 streams in the kernel's (B, H, T, hs)
 layout.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (
@@ -149,6 +152,18 @@ def moe_router(logits, k: int, impl="kernel"):
     if impl == "ref":
         return ref.moe_router(logits, k)
     return _router.moe_router(logits, k)
+
+
+def moe_route(logits, k: int, C: int, live=None, dtype=torch.float32,
+              impl="kernel"):
+    """logits (g, G, E), E <= 128, G <= 1024 -> ``ref.Route``: the router
+    on every token, then per group the slot-major capacity places and the
+    (g, G, E, C) dispatch and combine tensors in ``dtype``, the expert
+    loads and the top-1 shares; ``live`` (g, G) takes dead tokens out of
+    the queues."""
+    _check_impl(impl)
+    fn = ref.moe_route if impl == "ref" else _router.moe_route
+    return fn(logits, k, C, live, dtype)
 
 
 # -- chunked WKV6 -------------------------------------------------------------

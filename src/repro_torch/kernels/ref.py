@@ -7,6 +7,8 @@ float32 whatever the input type; outputs come back in q's dtype.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 NEG_INF = -1e30
@@ -257,6 +259,70 @@ def moe_router(logits, k: int):
     gates = torch.stack(gates, -1)
     gates = gates / torch.clamp(torch.sum(gates, -1, keepdim=True), min=1e-9)
     return gates, torch.stack(idxs, -1).to(torch.int32), probs
+
+
+# ---------------------------------------------------------------------------
+# MoE route: the router, then each (token, slot)'s place in its expert's
+# capacity-C queue and the one-hot dispatch / combine tensors
+# (repro/models/moe.py, moe_ffn between the router and the expert products)
+# ---------------------------------------------------------------------------
+
+class Route(NamedTuple):
+    dispatch: torch.Tensor   # (g, G, E, C) model dtype: 1 where kept
+    combine: torch.Tensor    # (g, G, E, C) model dtype: the kept gate
+    gates: torch.Tensor      # (g, G, k) f32, renormalized over the k
+    idx: torch.Tensor        # (g, G, k) expert ids
+    probs: torch.Tensor      # (g, G, E) f32 softmax
+    place: torch.Tensor      # (g, G, k) int32 queue place (0 for dead
+    #                          tokens); kept where place < C
+    top1: torch.Tensor       # (E,) f32 share of the g * G tokens whose first
+    #                          choice is e (live tokens only)
+    load: torch.Tensor       # (E,) f32 live (token, slot) pairs per expert
+
+
+def _one_hot(idx, n: int) -> torch.Tensor:
+    """float32 one-hot over a new last dim of size n (any integer dtype)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def moe_dispatch(gates, idx, probs, C: int, live=None, dtype=torch.float32):
+    """Routing (gates, idx (g, G, k), probs (g, G, E)) -> :class:`Route`:
+    the reference's capacity dispatch.  Places are counted slot-major
+    within a group (every token's slot 0 before any token's slot 1), dead
+    tokens (``live`` (g, G) 0) take none, and places >= C are dropped."""
+    g, G, k = idx.shape
+    E = probs.shape[-1]
+    onehot = _one_hot(idx, E)                                    # (g,G,k,E)
+    if live is not None:
+        # dead (pad) tokens leave the expert queues before positions are
+        # assigned: real tokens' capacity slots are pad-independent
+        onehot = onehot * live.reshape(g, G).float()[..., None, None]
+    # position of each (token, slot) within its expert queue, per group
+    flat = onehot.transpose(1, 2).reshape(g, k * G, E)           # slot-major
+    pos = torch.cumsum(flat, dim=1) - flat                       # (g,kG,E)
+    pos = pos.reshape(g, k, G, E).transpose(1, 2)                # (g,G,k,E)
+    pos_in_e = torch.sum(pos * onehot, dim=-1)                   # (g,G,k)
+    keep = pos_in_e < C                                  # capacity drop
+    place = pos_in_e.to(torch.int32)
+    pos_in_e = torch.where(keep, pos_in_e, 0).to(torch.int64)
+    gates_k = gates * keep
+    poshot = _one_hot(pos_in_e, C) * keep[..., None]             # (g,G,k,C)
+    # dispatch/combine without materializing the k-dim outer product
+    dispatch = torch.einsum("gtke,gtkc->gtec", onehot, poshot).to(dtype)
+    combine = torch.einsum("gtke,gtkc->gtec", onehot * gates_k[..., None],
+                           poshot).to(dtype)
+    return Route(dispatch, combine, gates, idx, probs, place,
+                 torch.mean(onehot[..., 0, :], dim=(0, 1)),
+                 torch.sum(onehot, dim=(0, 1, 2)))
+
+
+def moe_route(logits, k: int, C: int, live=None, dtype=torch.float32):
+    """logits (g, G, E) -> :class:`Route`: :func:`moe_router` on every
+    token, then :func:`moe_dispatch`."""
+    g, G, E = logits.shape
+    gates, idx, probs = moe_router(logits.reshape(-1, E), k)
+    return moe_dispatch(gates.reshape(g, G, k), idx.reshape(g, G, k),
+                        probs.reshape(g, G, E), C, live, dtype)
 
 
 # ---------------------------------------------------------------------------

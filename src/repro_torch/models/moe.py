@@ -6,7 +6,11 @@ Dispatch is the JAX package's group-wise one-hot einsum formulation
 groups of ``G = gcd(group_size, S)``; each (token, slot) takes a place in
 its expert's queue by a slot-major cumsum, and places past the capacity C
 are dropped.  The one-hot ``dispatch`` / ``combine`` tensors keep the
-reference's order of sums, so the port's outputs follow JAX's.  The
+reference's order of sums, so the port's outputs follow JAX's.  With
+``use_kernel`` on the card, one CUDA kernel (``ops.moe_route``) computes
+the whole route, from the router logits to dispatch, combine and the
+loads; its plain version (``kernels/ref.moe_route``) is the reference's
+code, and dispatch and combine are exact, so both give the same bits.  The
 expert products are plain batched matrix products (``torch.bmm``), as the
 JAX package leaves them to XLA, one batch entry per expert.  Where JAX asks
 for a float32 result (``preferred_element_type``: the gate and up products
@@ -25,6 +29,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.kernels import ref
 from repro_torch.models import layers
 
 
@@ -68,15 +73,14 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([x.float() @ y.float() for x, y in zip(a, b)])
 
 
-def _one_hot(idx, n: int) -> torch.Tensor:
-    """float32 one-hot over a new last dim of size n (any integer dtype)."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
-
-
 def moe_ffn(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
             capacity_factor: float = 1.25, group_size: int = 1024,
             use_kernel: bool = False, live=None):
     """x: (B, S, d) -> (out, aux) where aux has losses + expert loads.
+
+    ``use_kernel``: the routing through one ``moe_route`` kernel launch,
+    from the router logits to the dispatch and combine tensors (its plain
+    version on the CPU).
 
     ``live`` (optional (B, S) 0/1 mask -- serving prefill): masked-out
     positions are dropped from routing entirely -- they occupy no expert
@@ -93,26 +97,15 @@ def moe_ffn(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
     xg = x.reshape(g, G, d)
 
     logits = xg.float() @ params["router"]                       # (g, G, E)
-    gates, idx, probs = router_topk(logits, k, use_kernel)       # (g, G, .)
-    onehot = _one_hot(idx, E)                                    # (g,G,k,E)
-    if live is not None:
-        # dead (pad) tokens leave the expert queues before positions are
-        # assigned: real tokens' capacity slots are pad-independent
-        onehot = onehot * live.reshape(g, G).float()[..., None, None]
-    # position of each (token, slot) within its expert queue, per group
-    flat = onehot.transpose(1, 2).reshape(g, k * G, E)           # slot-major
-    pos = torch.cumsum(flat, dim=1) - flat                       # (g,kG,E)
-    pos = pos.reshape(g, k, G, E).transpose(1, 2)                # (g,G,k,E)
-    pos_in_e = torch.sum(pos * onehot, dim=-1)                   # (g,G,k)
-    keep = pos_in_e < C                                  # capacity drop
-    pos_in_e = torch.where(keep, pos_in_e, 0).to(torch.int64)
-    gates_k = gates * keep
-    poshot = _one_hot(pos_in_e, C) * keep[..., None]             # (g,G,k,C)
     dt = x.dtype
-    # dispatch/combine without materializing the k-dim outer product
-    dispatch = torch.einsum("gtke,gtkc->gtec", onehot, poshot).to(dt)
-    combine = torch.einsum("gtke,gtkc->gtec", onehot * gates_k[..., None],
-                           poshot).to(dt)
+    live_g = None if live is None else live.reshape(g, G)
+    if use_kernel:
+        # one kernel: routing, queue places, dispatch/combine, loads
+        from repro_torch.kernels import ops
+        route = ops.moe_route(logits, k, C, live_g, dt)
+    else:
+        route = ref.moe_dispatch(*router_topk(logits, k), C, live_g, dt)
+    dispatch, combine = route.dispatch, route.combine
     # expert-major (E, g*C, d): one batch entry per expert for the bmms
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xg).reshape(
         E, g * C, d)
@@ -128,10 +121,8 @@ def moe_ffn(cfg: ArchConfig, params: Dict, x: torch.Tensor, *,
     out = _bmm_f32(combine.reshape(g, G, E * C), expert_out)     # (g,G,d)
 
     # aux statistics (Switch LB loss over all tokens)
-    frac_tokens = torch.mean(onehot[..., 0, :], dim=(0, 1))      # top-1 frac
-    mean_prob = torch.mean(probs, dim=(0, 1))
-    lb_loss = E * torch.sum(frac_tokens * mean_prob)
+    mean_prob = torch.mean(route.probs, dim=(0, 1))
+    lb_loss = E * torch.sum(route.top1 * mean_prob)
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    load = torch.sum(onehot, dim=(0, 1, 2))                      # (E,)
-    aux = {"lb_loss": lb_loss, "z_loss": z_loss, "expert_load": load}
+    aux = {"lb_loss": lb_loss, "z_loss": z_loss, "expert_load": route.load}
     return out.to(dt).reshape(B, S, d), aux

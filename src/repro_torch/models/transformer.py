@@ -50,7 +50,7 @@ class ModelCtx:
     attn_impl: str = "chunked"       # naive | chunked | flash (CUDA kernel)
     attn_chunk: int = 1024
     decode_impl: str = "dense"       # dense | flash (CUDA flash-decode)
-    use_kernels: bool = False        # MoE router, rwkv6 WKV: CUDA kernels
+    use_kernels: bool = False        # MoE route, rwkv6 WKV: CUDA kernels
     moe_group: int = 256
     moe_capacity_factor: float = 1.25
 

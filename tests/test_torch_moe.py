@@ -441,3 +441,114 @@ def test_capacity_matches_jax():
                            (256, 8, 128, 0.5), (1, 6, 64, 1.25)):
         assert tmoe._capacity(group, k, E, f) == \
             jmoe._capacity(group, k, E, f)
+
+
+# -- the fused route (router, capacity places, dispatch, combine) ------------
+
+def _jax_dispatch(gates, idx, E, C, live, dtype):
+    """``src/repro/models/moe.py``'s ``moe_ffn`` from the one-hot of the
+    routing to the combine tensor, with its aux counts, written out in jnp
+    and fed a given routing (gates, idx (g, G, k) of E experts): (place,
+    keep, dispatch, combine, top-1 share, load)."""
+    g, G, k = idx.shape
+    onehot = jax.nn.one_hot(idx, E, dtype=jnp.float32)
+    if live is not None:
+        onehot = onehot * live.reshape(g, G).astype(jnp.float32)[..., None,
+                                                                 None]
+    flat = onehot.transpose(0, 2, 1, 3).reshape(g, k * G, E)
+    pos = jnp.cumsum(flat, axis=1) - flat
+    pos = pos.reshape(g, k, G, E).transpose(0, 2, 1, 3)
+    place = jnp.sum(pos * onehot, axis=-1)
+    keep = place < C
+    pos_in_e = jnp.where(keep, place, 0).astype(jnp.int32)
+    gates_k = gates * keep
+    poshot = jax.nn.one_hot(pos_in_e, C, dtype=jnp.float32) * keep[..., None]
+    dispatch = jnp.einsum("gtke,gtkc->gtec", onehot, poshot).astype(dtype)
+    combine = jnp.einsum("gtke,gtkc->gtec", onehot * gates_k[..., None],
+                         poshot).astype(dtype)
+    return (place, keep, dispatch, combine,
+            jnp.mean(onehot[..., 0, :], axis=(0, 1)),
+            jnp.sum(onehot, axis=(0, 1, 2)))
+
+
+ROUTE_CASES = [  # (g, G, E, k, capacity factor, dead share, dtype)
+    (8, 1, 64, 6, 1.25, 0.0, "bfloat16"),      # Moonlight decode
+    (8, 1, 128, 8, 1.25, 0.0, "bfloat16"),     # Qwen3 decode
+    (8, 1, 8, 2, 1.25, 0.5, "float32"),
+    (40, 1, 64, 6, 1.25, 0.3, "bfloat16"),     # decode, more than 32 slots
+    (3, 7, 8, 2, 0.5, 0.3, "float32"),
+    (3, 7, 64, 6, 1.25, 0.3, "bfloat16"),
+    (1, 7, 128, 8, 0.5, 0.0, "float32"),
+    (2, 64, 64, 6, 1.25, 0.0, "bfloat16"),
+    (2, 64, 64, 6, 0.5, 0.5, "float32"),
+    (2, 64, 128, 8, 0.5, 0.0, "bfloat16"),
+    (2, 64, 8, 2, 0.5, 0.3, "bfloat16"),
+    (2, 64, 128, 8, 1.25, 0.3, "float32"),
+    (1, 256, 64, 6, 1.25, 0.3, "bfloat16"),
+    (1, 256, 128, 8, 0.5, 0.5, "float32"),
+    (2, 256, 8, 2, 1.25, 0.0, "float32"),
+    (1, 256, 8, 2, 0.5, 0.0, "bfloat16"),
+]
+
+
+def _route_inputs(g, G, E, dead, seed):
+    """Logits with a per-expert skew (hot experts, so capacity drops), the
+    first token's row all equal (experts 0..k-1), and a live mask with
+    ``dead`` of the tokens out (None when 0)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((g, G, E))
+         + 1.5 * rng.standard_normal(E)).astype(np.float32)
+    x[0, 0] = 0.0
+    live = rng.random((g, G)) >= dead if dead else None
+    return x, live
+
+
+@pytest.mark.parametrize("g,G,E,k,capacity,dead,dtype", ROUTE_CASES)
+def test_route_matches_the_reference_dispatch(g, G, E, k, capacity, dead,
+                                              dtype):
+    """``ops.moe_route`` on CPU tensors (the wrapper's plain version)
+    against the reference's dispatch in jnp fed the same routing: places,
+    keep, dispatch and combine (in the model dtype), loads equal; the
+    routing is ``ref.moe_router``'s, the top-1 shares within 1e-7."""
+    x, live = _route_inputs(g, G, E, dead, seed=G * E + k)
+    C = tmoe._capacity(G, k, E, capacity)
+    tdt = getattr(torch, dtype)
+    r = ops.moe_route(torch.from_numpy(x), k, C,
+                      None if live is None else torch.from_numpy(live), tdt)
+    gates, idx, probs = ref.moe_router(torch.from_numpy(x).reshape(-1, E), k)
+    assert torch.equal(r.gates.reshape(-1, k), gates)
+    assert torch.equal(r.idx.reshape(-1, k), idx)
+    assert torch.equal(r.probs.reshape(-1, E), probs)
+    assert r.idx[0, 0].tolist() == list(range(k))
+    place, keep, disp, comb, top1, load = _jax_dispatch(
+        jnp.asarray(r.gates.numpy()), jnp.asarray(r.idx.numpy()), E, C,
+        None if live is None else jnp.asarray(live), jnp.dtype(dtype))
+    assert r.place.dtype == torch.int32
+    np.testing.assert_array_equal(r.place.numpy(), np.asarray(place))
+    np.testing.assert_array_equal((r.place < C).numpy(), np.asarray(keep))
+    assert r.dispatch.dtype == r.combine.dtype == tdt
+    assert r.dispatch.shape == (g, G, E, C)
+    for got, want in ((r.dispatch, disp), (r.combine, comb)):
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+    np.testing.assert_array_equal(r.load.numpy(), np.asarray(load))
+    np.testing.assert_allclose(r.top1.numpy(), np.asarray(top1), atol=1e-7,
+                               rtol=0)
+    alive = np.ones((g, G), bool) if live is None else live
+    if capacity < 1 and G >= 64:        # hot experts overflow their queues
+        assert (~np.asarray(keep) & alive[..., None]).any()
+    assert float(r.load.sum()) == k * alive.sum()
+
+
+def test_route_refuses_what_the_kernel_cannot_take():
+    before = router_kernel.moe_route.launches
+    with pytest.raises(ValueError, match="G=1025"):
+        ops.moe_route(torch.zeros(1, 1025, 8), 2, 8)
+    with pytest.raises(ValueError, match="E=129"):
+        ops.moe_route(torch.zeros(2, 4, 129), 2, 8)
+    x = torch.zeros(2, 4, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="moe_route: .*no backward"):
+        ops.moe_route(x, 2, 8)
+    with torch.no_grad():
+        ops.moe_route(x, 2, 8)
+    assert router_kernel.moe_route.launches == before
