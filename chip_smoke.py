@@ -102,7 +102,24 @@ failing the run with a non-zero exit when its check fails:
    layout's workload once more under ``torch.profiler`` gives the device's
    busy share, its top kernels and the attention kernels' device time per
    call on the main path (a decode call's split and merge kernels
-   together, the union of their intervals);
+   together, the union of their intervals).  Then the CF head on the same
+   model and kernels: the same 16 requests with 16 candidates each
+   (``TrafficConfig(seed=0, candidates=16)``, 10,000 users, cf_dim 16),
+   scored at admission by two heads over the same tables, with no hot-row
+   cache and with 128 rows, a tracer and a registry on the cached run.
+   Under a pinned clock the greedy streams must equal the engine's without
+   a head, cf / fused / ranking must be bit-equal between the heads (each
+   ranking a permutation of its candidates, one request's cf equal to
+   numpy's ``item[cand] @ user[u]``), the registry's ``cf_cache``
+   counters must sum to the head's, ``gather_rows`` must launch twice a
+   scored request without the cache and once a lookup with a miss with
+   it (counted independently by replaying the lookups on the CPU), every
+   TTFT must equal its ``req.queue_wait`` + ``req.prefill`` spans within
+   1e-9 s with ``cf.lookup`` inside ``req.prefill``, and the Chrome trace
+   must reload with ``ph``/``ts``/``pid``/``tid`` on every event.
+   Unpinned: TTFT p50 with and without the head, ``cf.lookup`` ms a
+   request, and ``gather_rows``'s device ms a call on this path (the
+   profiler);
 4. serving the MoE archs at full width in bf16 with the route kernel on
    every MoE FFN and both attention kernels on: Moonlight-16B-A3B cut to
    12 of its 48 layers (7.52B parameters, 15.0 GB) under the dense,
@@ -1267,6 +1284,254 @@ def phase_serving(torch):
           f"{BLOCK_MAIN}: {pg}; pool drained; float32 streams == dense")
     report["prefix_sharing"] = pg
     return report
+
+
+# -- CF head serving ----------------------------------------------------------
+
+CF_USERS = 10_000        # TrafficConfig's n_users (the launcher's head)
+CF_DIM = 16              # the launcher's cf_dim
+CF_CACHE_ROWS = 128      # the launcher's --cf-cache-rows
+CF_CANDIDATES = 16
+CF_TAGS = {"gather_rows": ("gather_rows_kernel",)}
+CF_ROUNDS = 3            # unpinned runs of each engine, in turns
+
+
+def phase_cf_serving(torch, card):
+    """RecLLM-base at full width in bf16 with the CF head scoring every
+    request's candidate set at admission (the kernels context of the dense
+    run, 16 requests of ``TrafficConfig(seed=0, candidates=16)`` on 8 slots
+    x 512, 10,000 users).  Two heads carry the same tables, with no hot-row
+    cache and with 128 rows; a tracer and a registry ride on the cached
+    run.  Under a pinned clock: greedy streams equal to the same engine's
+    without a head, cf / fused / ranking bit-equal between the heads, one
+    request's cf equal to numpy's over the host tables, the registry's
+    cf_cache counters equal to the head's, ``gather_rows`` launched twice a
+    scored request without the cache and once a lookup with a miss with
+    it, TTFT equal to the spans' sum with every ``cf.lookup`` inside its
+    ``req.prefill``, and the Chrome trace reloading whole.  Unpinned: TTFT
+    p50 with and without the head, ``cf.lookup`` ms a request, and the
+    profiler's ``gather_rows`` device ms a call on this path."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.config import get_arch
+    from repro_torch.embeddings import (CacheConfig, CachedLookup, EmbedSpec,
+                                        init_table)
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import MetricsRegistry, Tracer, write_trace
+    from repro_torch.serving import (CFConfig, CFHead, Clock, EngineConfig,
+                                     ServingEngine, TrafficConfig, generate,
+                                     make_backend)
+    dev = torch.device("cuda")
+    cfg = get_arch("recllm-base")
+    ecfg = EngineConfig(n_slots=8, max_len=512)
+    requests = generate(TrafficConfig(n_requests=16,
+                                      vocab_size=cfg.vocab_size, seed=0,
+                                      candidates=CF_CANDIDATES,
+                                      n_users=CF_USERS))
+    kern = tf.ModelCtx(attn_impl="flash", decode_impl="flash", attn_chunk=8)
+    params = convert.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    user = init_table(gen, EmbedSpec("cf_user", CF_USERS, CF_DIM), dev)
+    item = init_table(gen, EmbedSpec("cf_item", cfg.vocab_size, CF_DIM), dev)
+    user_np, item_np = user.cpu().numpy(), item.cpu().numpy()
+
+    def head(rows):
+        return CFHead(user, item, cfg=CFConfig(cache_rows=rows), device=dev)
+
+    def pinned():
+        return Clock(fixed_decode_s=0.01, fixed_prefill_s=0.02,
+                     fixed_cf_s=0.005)
+
+    def engine(cf_head, clock=None, tracer=None, metrics=None):
+        return ServingEngine(make_backend(cfg, params, kern, device=dev),
+                             ecfg, clock, tracer=tracer, metrics=metrics,
+                             cf_head=cf_head)
+
+    engine(head(0)).run(requests)           # warm-up: the head's path too
+    L = cfg.num_layers
+
+    def launches_of(name, eng, run, gathers):
+        reset_launches()
+        outputs, records, summary = run()
+        got = read_launches()
+        check(summary["finished"] == len(requests)
+              and summary["rejected"] == 0,
+              f"cf {name}: served {summary['finished']}/{len(requests)}")
+        want = {k: 0 for k in got}
+        want.update(flash_attention=L * summary["prefills"],
+                    flash_decode=L * summary["decode_steps"],
+                    gather_rows=gathers(eng))
+        check(got == want, f"cf {name}: launches {got}, want {want}")
+        return outputs, records, summary, got
+
+    # pinned clock: one schedule for every run, so streams and scores
+    # compare exactly
+    plain_out = engine(None, pinned()).run(requests)[0]
+    eng_u = engine(head(0), pinned())
+    out_u, _, sum_u, l_u = launches_of(
+        "uncached", eng_u, lambda: eng_u.run(requests),
+        lambda e: 2 * e.cf_scored)
+    tracer, registry = Tracer(), MetricsRegistry()
+    eng_c = engine(head(CF_CACHE_ROWS), pinned(), tracer, registry)
+
+    def missed_lookups(e):
+        """Lookups with a miss, from the scored requests replayed through
+        CPU lookups of the same tables and cache: an independent count of
+        the device gathers the cached head must have made."""
+        cache = CacheConfig(rows=CF_CACHE_ROWS)
+        lk = {n: CachedLookup(EmbedSpec(n, *t.shape), "replicated", t,
+                              device="cpu", cache=cache)
+              for n, t in (("cf_user", user_np), ("cf_item", item_np))}
+        by_rid = {r.rid: r for r in requests}
+        n = 0
+        for rid in e.cf_results:                # in scoring order
+            r = by_rid[rid]
+            n += lk["cf_user"]([r.user_id])[1]["misses"] > 0
+            n += lk["cf_item"](list(r.candidates))[1]["misses"] > 0
+        return n
+
+    out_c, recs_c, sum_c, l_c = launches_of(
+        "cached", eng_c, lambda: eng_c.run(requests), missed_lookups)
+    check(eng_u.cf_scored == eng_c.cf_scored == len(requests),
+          f"cf: scored {eng_u.cf_scored} / {eng_c.cf_scored} of "
+          f"{len(requests)} requests")
+    for name, out in (("uncached", out_u), ("cached", out_c)):
+        div = _first_divergence(out, plain_out)
+        check(div is None, f"cf {name}: greedy streams differ from the "
+                           f"engine's without a head at (rid, token) {div}")
+    for rid, ru in eng_u.cf_results.items():
+        rc = eng_c.cf_results[rid]
+        for k in ("cf", "fused", "ranking"):
+            check(np.array_equal(rc[k], ru[k]),
+                  f"cf: request {rid}'s {k} differs cached vs uncached")
+        r = next(x for x in requests if x.rid == rid)
+        check(sorted(ru["ranking"].tolist()) == sorted(r.candidates),
+              f"cf: request {rid}'s ranking is not a permutation of its "
+              "candidates")
+    r0 = requests[0]
+    want_cf = item_np[np.asarray(r0.candidates)] @ user_np[r0.user_id]
+    check(np.array_equal(eng_c.cf_results[r0.rid]["cf"], want_cf),
+          "cf: request 0's scores differ from numpy's item[cand] @ user[u]")
+    counters = registry.snapshot()["counters"]
+    head_c = eng_c.cf_head
+    check(counters["cf_cache.hits"] + counters["cf_cache.misses"]
+          == head_c.hits + head_c.misses,
+          f"cf: registry counters {counters} against the head's "
+          f"{head_c.hits} hits + {head_c.misses} misses")
+    spans = {}
+    for e in tracer.events:
+        if e["ph"] == "X" and "rid" in e["args"]:
+            spans.setdefault(e["args"]["rid"], {})[e["name"]] = e
+    for rec in recs_c:
+        sp = spans[rec.rid]
+        cf_sp, pf = sp["cf.lookup"], sp["req.prefill"]
+        check(abs(sp["req.queue_wait"]["dur"] + pf["dur"] - rec.ttft)
+              <= 1e-9, f"cf: request {rec.rid}'s TTFT differs from its "
+                       "spans' sum")
+        check(pf["ts"] <= cf_sp["ts"]
+              and cf_sp["ts"] + cf_sp["dur"] <= pf["ts"] + pf["dur"] + 1e-9,
+              f"cf: request {rec.rid}'s cf.lookup lies outside req.prefill")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cf_trace.json")
+        n_events = write_trace(path, tracer, registry)
+        events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    check(len(events) == n_events and all(
+        all(k in e for k in ("ph", "ts", "pid", "tid")) for e in events),
+          "cf: the Chrome trace does not reload with ph/ts/pid/tid")
+    print(f"[cf] {cfg.name} bf16, {len(requests)} requests x "
+          f"{CF_CANDIDATES} candidates, {CF_USERS:,} users, cf_dim "
+          f"{CF_DIM}: pinned-clock streams == the engine's without a head; "
+          f"cf/fused/ranking bit-equal uncached vs cached "
+          f"({CF_CACHE_ROWS} rows, hit rate {head_c.hit_rate:.3f}); "
+          f"gather_rows launches {l_u['gather_rows']} uncached (2 x "
+          f"{eng_u.cf_scored} scored), {l_c['gather_rows']} cached (lookups "
+          f"with a miss); TTFT == spans within 1e-9 s; trace {n_events} "
+          "events reloaded")
+
+    # unpinned: what the head costs a request; the three engines in turns
+    # (the order reversed every other round), TTFT p50 pooled by median
+    variants = [("no_head", None), ("cached", CF_CACHE_ROWS), ("uncached", 0)]
+    rounds = {name: [] for name, _ in variants}
+    for rnd in range(CF_ROUNDS):
+        for name, rows in (variants if rnd % 2 == 0 else variants[::-1]):
+            tr = Tracer()
+            t0 = time.perf_counter()
+            _, _, summary = engine(None if rows is None else head(rows),
+                                   tracer=tr).run(requests)
+            rounds[name].append({
+                "ttft_p50_ms": summary["ttft_s"]["p50"] * 1e3,
+                "tpot_p50_ms": summary["tpot_s"]["p50"] * 1e3,
+                "wall_s": time.perf_counter() - t0,
+                "cf_ms": [e["dur"] * 1e3 for e in tr.events
+                          if e["name"] == "cf.lookup"]})
+    timing = {}
+    for name, runs in rounds.items():
+        cf_ms = sorted(x for r in runs for x in r["cf_ms"])
+        timing[name] = {
+            "ttft_p50_ms": [r["ttft_p50_ms"] for r in runs],
+            "tpot_p50_ms": [r["tpot_p50_ms"] for r in runs],
+            "wall_s": runs[-1]["wall_s"]}
+        if cf_ms:
+            timing[name]["cf_lookup_ms_p50"] = float(np.percentile(cf_ms, 50))
+            timing[name]["cf_lookup_ms_p99"] = float(np.percentile(cf_ms, 99))
+        print(f"[cf {name}] ({card}) TTFT p50 of {CF_ROUNDS} runs in turns "
+              f"(median {np.median(timing[name]['ttft_p50_ms']):.3f}): "
+              + ", ".join(f"{x:.3f}" for x in timing[name]["ttft_p50_ms"])
+              + " ms; TPOT p50 " + ", ".join(
+                  f"{x:.3f}" for x in timing[name]["tpot_p50_ms"]) + " ms"
+              + (f"; cf.lookup a request p50 "
+                 f"{timing[name]['cf_lookup_ms_p50']:.4f} ms p99 "
+                 f"{timing[name]['cf_lookup_ms_p99']:.4f} ms (n "
+                 f"{len(cf_ms)})" if cf_ms else ""))
+
+    # where a cf.lookup's time goes: each part alone on request 0's ids,
+    # host clock around synchronised work, median of 50 calls
+    def host_ms(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    cand = np.asarray(r0.candidates, np.int64)
+    row = torch.randn(cfg.vocab_size, generator=gen, device=dev).to(
+        torch.bfloat16)
+    cold, hot = head(0), head(CF_CACHE_ROWS)
+    for _ in range(3):                      # elect request 0's ids
+        hot.score(r0.user_id, cand, row)
+    parts = {
+        "user_gather_round_trip": lambda: cold.lookups["cf_user"](
+            [r0.user_id]),
+        "item_gather_round_trip": lambda: cold.lookups["cf_item"](cand),
+        "logits_at_candidates": lambda: row[
+            torch.as_tensor(cand, device=dev)].float().cpu(),
+        "cached_item_lookup_all_hits": lambda: hot.lookups["cf_item"](cand),
+        "score_uncached": lambda: cold.score(r0.user_id, cand, row),
+        "score_cached_all_hits": lambda: hot.score(r0.user_id, cand, row)}
+    breakdown = {k: host_ms(fn) for k, fn in parts.items()}
+    print(f"[cf] ({card}) a cf.lookup's parts, host ms (median of 50, "
+          f"{len(cand)} candidates): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in breakdown.items()))
+    prof = profile_serve(
+        torch, "cf uncached",
+        lambda: engine(head(0)).run(requests),
+        timing["uncached"]["wall_s"], CF_TAGS)
+    gather_ms = prof["device_ms_per_launch"].get("gather_rows")
+    print(f"[cf] ({card}) gather_rows device ms a call on the CF serve "
+          "path: " + ("not measured" if gather_ms is None
+                      else f"{gather_ms:.5f}"))
+    return {"runs": {"uncached": {"launches": l_u, "cf": sum_u["cf"]},
+                     "cached": {"launches": l_c, "cf": sum_c["cf"]}},
+            "timing": timing, "breakdown_ms": breakdown, "profile": prof,
+            "gather_rows_device_ms": gather_ms}
 
 
 # -- MoE serving --------------------------------------------------------------
@@ -3163,6 +3428,8 @@ def main(argv=None) -> int:
             timed(name, fn, report["kernels"])
         timed("autograd_guard", check_autograd_guard)
         report["serving"] = timed("serving", phase_serving)
+        report["cf_serving"] = timed("cf_serving", phase_cf_serving,
+                                     report["device"]["card"])
         report["moe_serving"] = timed("moe_serving", phase_moe_serving)
         report["rwkv6_serving"] = timed("rwkv6_serving", phase_rwkv6_serving)
         report["training"] = timed("training", phase_training)
@@ -3191,6 +3458,14 @@ def main(argv=None) -> int:
                "moe_router": ("moe_serving", "moonlight_dense"),
                "moe_route": ("moe_serving", "moonlight_dense"),
                "wkv6_chunked": ("rwkv6_serving", "dense")}
+    # gather_rows also runs on the CF head's serve path: its launches there
+    # and its device ms a call from that run's profile
+    cf = report["cf_serving"]
+    cf_serve = {"launches_uncached":
+                cf["runs"]["uncached"]["launches"]["gather_rows"],
+                "launches_cached":
+                cf["runs"]["cached"]["launches"]["gather_rows"],
+                "device_ms": cf["gather_rows_device_ms"]}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape
@@ -3205,7 +3480,8 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"]})
+            "shape": t["shape"], **({"cf_serve": cf_serve}
+                                    if name == "gather_rows" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

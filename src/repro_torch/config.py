@@ -92,6 +92,70 @@ class ArchConfig:
                 kinds.append("attn")
         return tuple(kinds)
 
+    def num_params(self) -> int:
+        """Analytic parameter count (embedding + per-layer)."""
+        n = self.padded_vocab * self.d_model          # embed
+        if not self.tie_embeddings:
+            n += self.padded_vocab * self.d_model     # lm head
+        for i, kind in enumerate(self.layer_kinds()):
+            n += self._layer_params(kind, layer_idx=i)
+        if self.encoder_layers:
+            n += self.encoder_layers * self._layer_params("attn", cross=False)
+            # decoder cross-attention blocks
+            n += self.num_layers * (2 * self.d_model * self.kv_dim
+                                    + self.d_model * self.q_dim
+                                    + self.q_dim * self.d_model)
+        return n
+
+    def _ffn_params(self, layer_idx: int = 0) -> int:
+        mats = 3 if self.mlp_gated else 2
+        if self.is_moe and (layer_idx % self.moe_period == self.moe_period - 1):
+            router = self.d_model * self.num_experts
+            return router + self.num_experts * mats * self.d_model * self.d_ff
+        if self.is_moe and self.moe_period > 1:
+            # dense interleave layers in a partially-MoE model reuse d_ff
+            return mats * self.d_model * self.d_ff
+        if self.is_moe:
+            return (self.d_model * self.num_experts
+                    + self.num_experts * mats * self.d_model * self.d_ff)
+        return mats * self.d_model * self.d_ff
+
+    def _layer_params(self, kind: str, cross: bool = False, layer_idx: int = 0) -> int:
+        d = self.d_model
+        if kind in ("attn", "local_attn"):
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        elif kind == "mamba":
+            d_in = self.ssm_expand * d
+            attn = (d * 2 * d_in                   # in_proj (x, z)
+                    + d_in * self.ssm_d_conv       # conv
+                    + d_in * (2 * self.ssm_d_state + 1)  # B, C, dt proj (simplified)
+                    + d_in * self.ssm_d_state      # A_log
+                    + d_in * d)                    # out_proj
+        elif kind == "rwkv6":
+            h = d // self.rwkv_head_size
+            attn = (4 * d * d                      # r, k, v, output
+                    + d * d                        # gate
+                    + 6 * d                        # time-mix lerps (lora-less approx)
+                    + h * self.rwkv_head_size)     # time_first
+        else:
+            raise ValueError(kind)
+        return attn + self._ffn_params(layer_idx)
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE: only top-k experts)."""
+        if not self.is_moe:
+            return self.num_params()
+        n = self.padded_vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        mats = 3 if self.mlp_gated else 2
+        for i, kind in enumerate(self.layer_kinds()):
+            full = self._layer_params(kind, layer_idx=i)
+            if i % self.moe_period == self.moe_period - 1:
+                moe_full = self.num_experts * mats * self.d_model * self.d_ff
+                moe_act = self.experts_per_token * mats * self.d_model * self.d_ff
+                full = full - moe_full + moe_act
+            n += full
+        return n
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:

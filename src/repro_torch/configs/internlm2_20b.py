@@ -1,0 +1,20 @@
+"""InternLM2-20B — dense GQA decoder [arXiv:2403.17297; hf]."""
+from repro_torch.config import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="internlm2-20b",
+    family="dense",
+    num_layers=48,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=92544,
+    norm_type="rmsnorm",
+    mlp_gated=True,
+    act="silu",
+    pos_type="rope",
+    rope_theta=1e6,
+    source="arXiv:2403.17297; hf",
+))

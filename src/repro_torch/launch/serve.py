@@ -29,6 +29,21 @@ reference's error (it carries no KV).  The layout flags (``--kv``,
 ``--no-prefix-sharing``) fold into one
 :class:`~repro_torch.cache_layout.CacheLayout`, as in the JAX launcher.
 Weights are random, drawn from ``--seed``.
+
+``--candidates N`` attaches a head-heavy (Zipfian) candidate item set to
+every request and ``--cf-plan replicated`` mounts the CF scoring head: each
+request is then a retrieval->rank call (LM prefill, CF factor lookup, gated
+fusion, candidate ranking).  ``--cf-cache-rows`` sizes a hot-row replica
+in front of each table's device gather (scores are bit-identical with the
+cache on or off).  It is off by default: on the replicated plan its
+per-lookup election costs more than the gathers it saves (``PERF.md``);
+it is there for the sharded plans' exchange.  The sharded plans (``row``, ``col``, ``row_col``) exit
+with the not-ported error.  ``--trace-out FILE`` writes the measured run's
+spans and metrics (``.jsonl`` raw events, anything else Chrome-trace JSON
+for https://ui.perfetto.dev):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --candidates 8 --cf-plan replicated --trace-out trace.json
 """
 import argparse
 import dataclasses
@@ -40,8 +55,9 @@ from repro_torch import convert, resolve_device
 from repro_torch.cache_layout import CacheLayout
 from repro_torch.config import get_arch, list_archs, reduced
 from repro_torch.models.transformer import ModelCtx
-from repro_torch.serving import (EngineConfig, ServingEngine, TrafficConfig,
-                                 generate, make_backend)
+from repro_torch.obs import MetricsRegistry, Tracer, write_trace
+from repro_torch.serving import (CFHead, EngineConfig, ServingEngine,
+                                 TrafficConfig, generate, make_backend)
 from repro_torch.serving.metrics import format_report
 
 
@@ -59,7 +75,10 @@ def run_engine(args) -> int:
         prompt_max=max(defaults.prompt_min, min(48, args.max_len // 2)),
         new_tokens_max=max(defaults.new_tokens_min,
                            min(24, args.max_len // 4)),
-        vocab_size=cfg.vocab_size, seed=args.seed)
+        vocab_size=cfg.vocab_size, seed=args.seed,
+        # recsys retrieval->rank: per-request candidate item sets (drawn
+        # from a separate rng stream: the base workload is unperturbed)
+        candidates=args.candidates)
     requests = generate(tcfg)
 
     layout = CacheLayout(kind=args.cache_layout,
@@ -75,20 +94,32 @@ def run_engine(args) -> int:
     ctx = ModelCtx(attn_impl=args.attn_impl, attn_chunk=8,
                    use_kernels=args.kernels)
 
-    def mk_server():
+    def mk_cf_head():
+        if args.cf_plan == "off":
+            return None
+        return CFHead.build(
+            n_users=tcfg.n_users, n_items=cfg.vocab_size, cf_dim=16,
+            seed=args.seed, plan=args.cf_plan,
+            cache_rows=args.cf_cache_rows, device=device)
+
+    def mk_server(tracer=None, metrics=None):
         backend = make_backend(cfg, params, ctx, layout=layout,
                                device=device)
-        return ServingEngine(backend, ecfg)
+        return ServingEngine(backend, ecfg, tracer=tracer, metrics=metrics,
+                             cf_head=mk_cf_head())
 
     try:
-        server = mk_server()
-    except ValueError as e:       # layout/family mismatches
+        if not args.no_warmup:
+            # first-use costs (kernel builds, CUDA context, cuBLAS handles)
+            # stay outside the measured run, as in a resident server
+            mk_server().run(requests)
+        # tracing is scoped to the measured run only, never the warm-up
+        tracer = Tracer() if args.trace_out else None
+        metrics = MetricsRegistry() if args.trace_out else None
+        server = mk_server(tracer, metrics)
+    except (ValueError, NotImplementedError) as e:
+        # layout/family mismatches; a sharded CF plan
         raise SystemExit(str(e))
-    if not args.no_warmup:
-        # first-use costs (kernel builds, CUDA context, cuBLAS handles)
-        # stay outside the measured run, as in a resident server
-        server.run(requests)
-        server = mk_server()
     outputs, records, summary = server.run(requests)
 
     title = (f"{cfg.name} {args.cache_layout} kv={args.kv} "
@@ -98,6 +129,16 @@ def run_engine(args) -> int:
              f"slots={args.slots} {args.process}@{args.rate:g}req/s "
              f"on {device}")
     print(format_report(summary, title))
+    if "cf" in summary:
+        s = summary["cf"]
+        print(f"cf head: plan={s['plan']} scored={s['requests_scored']} "
+              f"cache_rows={s['cache_rows']} (live {s['cache_rows_live']}) "
+              f"hit_rate={s['hit_rate']:.3f} "
+              f"({s['hits']} hits / {s['misses']} misses)")
+    if args.trace_out:
+        n = write_trace(args.trace_out, tracer, metrics)
+        print(f"trace: {n} events -> {args.trace_out} "
+              f"(open at https://ui.perfetto.dev)")
     if args.json:
         print(json.dumps(summary, indent=1))
     return 0
@@ -146,11 +187,30 @@ def main(argv=None) -> int:
                          "rwkv6: each prefill's WKV recurrence through the "
                          "CUDA chunked-WKV6 kernel) instead of its plain "
                          "version")
+    ap.add_argument("--candidates", type=int, default=0,
+                    help="recsys retrieval->rank: head-heavy (Zipfian) "
+                         "candidate item ids per request the CF head "
+                         "scores and ranks (0 = plain LM serving)")
+    ap.add_argument("--cf-plan", default="off",
+                    choices=("off", "replicated", "row", "col", "row_col"),
+                    help="mount the CF scoring head with its cf_user/"
+                         "cf_item factor tables under this plan (the port "
+                         "serves replicated; the sharded plans exit with "
+                         "the not-ported error)")
+    ap.add_argument("--cf-cache-rows", type=int, default=0,
+                    help="hot-row replica capacity per CF table: the "
+                         "frequency-tracked head served from the host, "
+                         "without a device gather (0 = cache off; scores "
+                         "are bit-identical either way)")
     ap.add_argument("--refill", default="continuous",
                     choices=("continuous", "static"))
     ap.add_argument("--queue-capacity", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--trace-out", default="",
+                    help="write the measured run's span timeline + metrics "
+                         "here: .jsonl for raw events, anything else for "
+                         "Chrome-trace/Perfetto JSON")
     ap.add_argument("--json", action="store_true")
     return run_engine(ap.parse_args(argv))
 

@@ -32,9 +32,9 @@ ids covering its virtual positions.  Three host-side pieces:
 
 Everything here is plain Python/numpy on the host; the device only ever
 sees the (n_slots, blocks_per_slot) int32 tables and pooled leaf tensors.
-The JAX package's speculative span writes (``ensure_writable_span``), slot
-export/import for disaggregated serving and the metrics-registry mirror
-(``attach_metrics``) are not ported yet (``ROADMAP.md``).
+The JAX package's speculative span writes (``ensure_writable_span``) and
+slot export/import for disaggregated serving are not ported yet
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -100,10 +100,41 @@ class BlockPool:
         self.shared_hits = 0
         self.cow_events = 0
         self.seal_count = 0
+        # optional obs registry mirror (attach_metrics)
+        self._metrics = None
+        self._mprefix = "pool"
+        self._mclock = None
+
+    def attach_metrics(self, registry, prefix: str = "pool",
+                       clock=None) -> None:
+        """Mirror pool occupancy and sharing stats into an obs
+        :class:`~repro_torch.obs.metrics.MetricsRegistry`: a
+        ``{prefix}.used_blocks`` gauge (its ``peak`` tracks ``peak_used``)
+        plus ``shared_hits`` / ``cow_events`` / ``seal_count`` counters.
+        The gauge series is stamped by the registry's clock -- the engine
+        pins that to its simulated clock, so the occupancy timeline aligns
+        with the request spans.  ``clock`` overrides the registry clock for
+        the gauge stamps."""
+        self._metrics = registry
+        self._mprefix = prefix
+        self._mclock = clock
+        self._sync_metrics()
+
+    def _sync_metrics(self) -> None:
+        m, p = self._metrics, self._mprefix
+        if m is None:
+            return
+        m.gauge(f"{p}.used_blocks").set(
+            self.used_blocks,
+            t=self._mclock() if self._mclock is not None else None)
+        m.counter(f"{p}.shared_hits").value = float(self.shared_hits)
+        m.counter(f"{p}.cow_events").value = float(self.cow_events)
+        m.counter(f"{p}.seal_count").value = float(self.seal_count)
 
     def note_shared_hit(self) -> None:
         """One prefix-share adoption (called by :class:`SlotTables`)."""
         self.shared_hits += 1
+        self._sync_metrics()
 
     @property
     def used_blocks(self) -> int:
@@ -126,6 +157,7 @@ class BlockPool:
         self.peak_used = max(self.peak_used, self.used_blocks)
         if for_cow:
             self.cow_events += 1
+        self._sync_metrics()
         return b
 
     def incref(self, b: int) -> None:
@@ -143,6 +175,7 @@ class BlockPool:
             if key is not None and self._by_hash.get(key) == b:
                 del self._by_hash[key]
             self._free.append(b)
+            self._sync_metrics()
 
     def seal(self, b: int, key: int) -> None:
         """Publish block ``b`` under content ``key`` (first writer wins;
@@ -151,6 +184,7 @@ class BlockPool:
             self._by_hash[key] = b
             self._hash_of[b] = key
             self.seal_count += 1
+            self._sync_metrics()
 
     def lookup(self, key: int) -> Optional[int]:
         return self._by_hash.get(key)

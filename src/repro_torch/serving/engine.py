@@ -29,13 +29,25 @@ uploads whenever they change, prefix-sharing admission keyed by
 :func:`~repro_torch.serving.block_pool.prefix_keys`, the copy-on-write walk
 before each decode step, and queue-head pushback when the pool is full.
 
+The engine is instrumented as the JAX one is (:mod:`repro_torch.obs`):
+hand it a ``tracer`` and/or a ``metrics`` registry and it pins both to its
+clock, emits per-request phase spans (``req.queue_wait`` / ``req.prefill``
+/ ``req.decode`` on one track per slot) built from the same
+:class:`~repro_torch.serving.metrics.RequestRecord` timestamps the
+TTFT/TPOT report reads, per-step ``decode_step`` spans carrying the modeled
+bytes and FLOPs, scheduler instants (``sched.admit`` / ``sched.reject`` /
+``sched.shed`` / ``sched.pushback``, ``pool.cow``) and live block-pool and
+load gauges.  A CF head (:class:`~repro_torch.serving.cf_head.CFHead`)
+scores a request's candidate set between its prefill and its first-token
+stamp, inside the ``req.prefill`` span (``cf.lookup``).
+
 This port serves greedy decode with one token per step.  Everything else
 raises ``NotImplementedError`` rather than being ignored: sampled requests
 (``temperature > 0``), the generic int8 composition and the paged one over
 KV leaves (other families, streaming prefill), ``spec_k > 1`` (a
 recurrent family raises the reference's ``ValueError``),
-``prefill_chunk > 0``, a CF head, tracer/metrics registries, and
-prefill/decode engine roles (``ROADMAP.md`` queues them).
+``prefill_chunk > 0``, and prefill/decode engine roles (``ROADMAP.md``
+queues them).
 """
 from __future__ import annotations
 
@@ -50,8 +62,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.cache_layout import (CacheLayout, blocks_per_slot,
                                       resolved_num_blocks)
+from repro_torch.core.hybrid import decode_model_flops
 from repro_torch.models import kvquant
 from repro_torch.models import transformer as tf
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer, or_null
 from repro_torch.serving import metrics as metrics_lib
 from repro_torch.serving import roofline
 from repro_torch.serving.block_pool import BlockPool, SlotTables, prefix_keys
@@ -386,14 +401,12 @@ class ServingEngine:
     ``backend.copy_block``)."""
 
     def __init__(self, backend, ecfg: EngineConfig = EngineConfig(),
-                 clock: Optional[Clock] = None, tracer=None, metrics=None,
-                 *, role: str = "both", cf_head=None):
+                 clock: Optional[Clock] = None,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None, *,
+                 role: str = "both", cf_head=None):
         if role != "both":
             raise _not_ported(f"engine role {role!r}")
-        if tracer is not None or metrics is not None:
-            raise _not_ported("tracer/metrics wiring")
-        if cf_head is not None:
-            raise _not_ported("the CF head")
         if ecfg.spec_k > 1:
             fam = backend.family
             if fam not in tf.SPEC_FAMILIES:
@@ -407,6 +420,16 @@ class ServingEngine:
             raise _not_ported("streaming (chunked) prefill")
         self.backend, self.ecfg = backend, ecfg
         self.clock = clock if clock is not None else Clock()
+        # observability: spans/instants + pool gauges, both pinned to the
+        # engine's clock so per-request span durations reconcile with the
+        # TTFT/TPOT report by construction (the shared no-op tracer never
+        # reads its clock, and is left holding no engine)
+        self.tracer = or_null(tracer)
+        if tracer is not None:
+            tracer.clock = lambda: self.clock.now
+        self.metrics = metrics
+        if metrics is not None:
+            metrics.clock = lambda: self.clock.now
         n = ecfg.n_slots
         self.layout = getattr(backend, "layout", None) or ecfg.layout
         self.pool: Optional[BlockPool] = None
@@ -421,6 +444,12 @@ class ServingEngine:
             self.prefix_sharing = (
                 self.layout.prefix_sharing
                 and getattr(backend, "supports_prefix_sharing", False))
+            if metrics is not None:
+                self.pool.attach_metrics(metrics,
+                                         clock=lambda: self.clock.now)
+        # sliding-window TTFT/TPOT histograms in the registry
+        self.win = (metrics_lib.WindowedLatency(metrics, "engine")
+                    if metrics is not None else None)
         self.cache = backend.init_slots(n, ecfg.max_len)
         self.queue = AdmissionQueue()
         self.slot_req: List[Optional[Request]] = [None] * n
@@ -441,6 +470,11 @@ class ServingEngine:
         self._slot_len = np.zeros(n, np.int64)
         self.max_concurrent = 0
         self._kv_bytes_sum = 0.0
+        # recsys serving: requests carrying a candidate set are scored by
+        # the CF head at prefill, inside the req.prefill span
+        self.cf_head = cf_head
+        self.cf_results: Dict[int, Dict] = {}
+        self.cf_scored = 0
 
     @property
     def n_active(self) -> int:
@@ -481,6 +515,42 @@ class ServingEngine:
             used_blocks=self.pool.used_blocks if self.pool is not None
             else 0)
 
+    def _trace_request(self, rec: metrics_lib.RequestRecord,
+                       slot: int) -> None:
+        """Retroactive per-request phase spans on track ``slot{N}``, built
+        from the RequestRecord timestamps the metrics report reads:
+        ``ttft == queue_wait.dur + prefill.dur`` and
+        ``tpot == decode.dur / (tokens_out - 1)`` hold identically."""
+        tr = self.tracer
+        if not tr.enabled or rec.finished is None:
+            return
+        track = f"slot{slot}"
+        tr.complete("req.queue_wait", rec.arrival, rec.admitted, track=track,
+                    rid=rec.rid, slo=rec.slo_name)
+        tr.complete("req.prefill", rec.admitted, rec.first_token, track=track,
+                    rid=rec.rid, prompt_len=rec.prompt_len)
+        tr.complete("req.decode", rec.first_token, rec.finished, track=track,
+                    rid=rec.rid, tokens_out=rec.tokens_out)
+
+    def _decode_model_args(self) -> Dict:
+        """Modeled bytes/FLOPs/utilization of one decode step over the live
+        per-slot lengths: the args of a traced ``decode_step`` span."""
+        cfg = self.backend.cfg
+        lengths = [int(self._slot_len[s]) for s in range(self.ecfg.n_slots)
+                   if self.slot_req[s] is not None]
+        if not lengths:
+            return {}
+        rb = roofline.decode_attn_read_bytes(
+            cfg, lengths, self.ecfg.max_len,
+            impl=self.layout.impl, kv_bits=self.layout.kv_bits)
+        return {
+            "n_active": len(lengths),
+            "attn_read_bytes": rb["attn_read_bytes_per_step"],
+            "mean_utilization": rb["mean_utilization"],
+            "model_flops": decode_model_flops(
+                cfg, max(lengths), len(lengths)),
+        }
+
     # -- scheduler ops -------------------------------------------------------
 
     def submit(self, req: Request) -> bool:
@@ -491,10 +561,9 @@ class ServingEngine:
         if req.temperature > 0.0:
             raise _not_ported(f"sampled decode (request {req.rid} has "
                               f"temperature {req.temperature})")
-        if req.frames is not None or req.grid is not None \
-                or req.candidates is not None:
+        if req.frames is not None or req.grid is not None:
             raise _not_ported(f"request {req.rid}'s encoder frames / patch "
-                              "grid / candidate set")
+                              "grid")
         rec = metrics_lib.RequestRecord(
             rid=req.rid, user_id=req.user_id, prompt_len=len(req.prompt),
             slo_name=req.slo.name, ttft_slo_s=req.slo.ttft_ms / 1e3,
@@ -502,15 +571,22 @@ class ServingEngine:
         self.records.append(rec)
         if len(req.prompt) >= self.ecfg.max_len:
             rec.rejected = True
+            self.tracer.instant("sched.reject", track="sched",
+                                rid=req.rid, reason="prompt_too_long")
             return False
         if len(self.queue) >= self.ecfg.queue_capacity:
             shed = (self.queue.shed_batch()
                     if req.slo.name == "interactive" else None)
             if shed is None:
                 rec.rejected = True
+                self.tracer.instant("sched.reject", track="sched",
+                                    rid=req.rid, reason="queue_full")
                 return False
             shed[1].rejected = True         # the batch-tier request it evicts
+            self.tracer.instant("sched.shed", track="sched",
+                                rid=shed[0].rid, for_rid=req.rid)
         self.queue.append((req, rec))
+        self._note_load()
         return True
 
     def _start(self, slot: int, req: Request,
@@ -534,6 +610,9 @@ class ServingEngine:
                 return False
             self._sync_tables()
         rec.admitted = self.clock.now
+        self.tracer.instant("sched.admit", track="sched",
+                            rid=req.rid, slot=slot,
+                            queue_wait=rec.admitted - rec.arrival)
         s_pad = _bucket(len(prompt), self.ecfg.prompt_quantum,
                         self.ecfg.max_len)
         padded = np.full((1, s_pad), self.ecfg.pad_id, np.int64)
@@ -547,15 +626,21 @@ class ServingEngine:
         if self.tables is not None:
             # publish this prompt's self-computed blocks for later sharers
             self.tables.seal_prompt(slot)
+        if self.cf_head is not None and req.candidates:
+            self._score_candidates(slot, req, logits_row)
         first = int(torch.argmax(logits_row))   # first maximum, as jnp
         rec.first_token = self.clock.now
         rec.tokens_out = 1
+        if self.win is not None:
+            self.win.observe_ttft(rec.first_token - rec.arrival)
         self.outputs[req.rid] = [first]
         budget = min(req.max_new_tokens, self.ecfg.max_len - len(prompt))
         if first == req.eos_id or budget <= 1:
             rec.finished = self.clock.now       # slot never occupied
             if self.tables is not None:
                 self.tables.release(slot)
+            self._trace_request(rec, slot)
+            self._note_finish(rec)
             return True
         self.slot_req[slot] = req
         self.slot_rec[slot] = rec
@@ -563,6 +648,30 @@ class ServingEngine:
         self.slot_tokens[slot, 0] = first
         self._tokens_dirty = True           # host wrote a slot: re-upload
         return True
+
+    def _score_candidates(self, slot: int, req: Request, logits_row) -> None:
+        """Retrieval->rank: score the candidate set through the CF tables
+        and fuse with the prompt's last-position logits.  Runs between
+        prefill and the first-token stamp, so the CF time lands inside the
+        req.prefill span and TTFT still equals the spans' sum."""
+        t_cf = self.clock.now
+        res = self._timed(
+            getattr(self.clock, "fixed_cf_s", None),
+            lambda: self.cf_head.score(req.user_id, req.candidates,
+                                       lm_logits_row=logits_row))
+        self.cf_results[req.rid] = res
+        self.cf_scored += 1
+        self.tracer.complete("cf.lookup", t_cf, self.clock.now,
+                             track=f"slot{slot}", rid=req.rid,
+                             hits=res["hits"], misses=res["misses"],
+                             candidates=len(req.candidates))
+        if self.metrics is not None:
+            self.metrics.counter("cf_cache.hits").inc(res["hits"])
+            self.metrics.counter("cf_cache.misses").inc(res["misses"])
+            self.metrics.gauge("cf_cache.hit_rate").set(
+                self.cf_head.hit_rate)
+            self.metrics.gauge("cf_cache.rows").set(
+                self.cf_head.cache_rows_live)
 
     def _refill(self) -> None:
         free = [s for s in range(self.ecfg.n_slots)
@@ -580,11 +689,41 @@ class ServingEngine:
                 # retiring slots return their blocks
                 if self.pool is not None and self.pool.used_blocks == 0:
                     rec.rejected = True
+                    self.tracer.instant("sched.reject", track="sched",
+                                        rid=req.rid, reason="pool_too_small")
                     continue
                 self.queue.pushback((req, rec))
-                self.max_concurrent = max(self.max_concurrent, self.n_active)
+                self.tracer.instant("sched.pushback", track="sched",
+                                    rid=req.rid,
+                                    free_blocks=self.pool.free_blocks)
+                self._note_occupancy()
                 return
-        self.max_concurrent = max(self.max_concurrent, self.n_active)
+        self._note_occupancy()
+
+    def _note_occupancy(self) -> None:
+        active = self.n_active
+        self.max_concurrent = max(self.max_concurrent, active)
+        if self.metrics is not None:
+            self.metrics.gauge("engine.active_slots").set(
+                active, t=self.clock.now)
+
+    def _note_load(self) -> None:
+        """Load gauges: queued work and the decode tokens still owed by
+        active slots, stamped with this engine's clock."""
+        if self.metrics is None:
+            return
+        t = self.clock.now
+        self.metrics.gauge("engine.queue_depth").set(
+            len(self.queue), t=t)
+        inflight = int(sum(int(self.slot_remaining[s])
+                           for s in range(self.ecfg.n_slots)
+                           if self.slot_req[s] is not None))
+        self.metrics.gauge("engine.in_flight_tokens").set(
+            inflight, t=t)
+
+    def _note_finish(self, rec: metrics_lib.RequestRecord) -> None:
+        if self.win is not None and rec.tpot is not None:
+            self.win.observe_tpot(rec.tpot)
 
     def _decode_once(self) -> None:
         if self.tables is not None:
@@ -597,15 +736,25 @@ class ServingEngine:
                 cow = self.tables.ensure_writable(s, int(self._slot_len[s]))
                 if cow is not None:
                     self.cache = self.backend.copy_block(self.cache, *cow)
+                    self.tracer.instant("pool.cow", track="pool", slot=s,
+                                        src=cow[0], dst=cow[1])
             self._sync_tables()
         if self._tokens_dirty or self._tokens_dev is None:
             self._tokens_dev = torch.as_tensor(self.slot_tokens,
                                                device=self.backend.device)
             self._tokens_dirty = False
         tokens = self._tokens_dev
+        # span args (modeled bytes/FLOPs) are computed only when the tracer
+        # is live: the disabled path stays one attribute check
+        step_t0 = self.clock.now
+        step_args = self._decode_model_args() if self.tracer.enabled else None
         logits, self.cache = self._timed(
             self.clock.fixed_decode_s,
             lambda: self.backend.decode(self.cache, tokens))
+        if step_args is not None:
+            self.tracer.complete("decode_step", step_t0, self.clock.now,
+                                 track="engine", step=self.decode_steps,
+                                 **step_args)
         self.decode_steps += 1
         self._kv_bytes_sum += self._resident_kv_bytes()
         nxt_dev = torch.argmax(logits[:, 0, :], dim=-1)
@@ -628,6 +777,9 @@ class ServingEngine:
                 self.slot_rec[s] = None
                 if self.tables is not None:
                     self.tables.release(s)  # refcounts back to the pool
+                self._trace_request(rec, s)
+                self._note_finish(rec)
+        self._note_load()
 
     # -- run loop ------------------------------------------------------------
 
@@ -657,6 +809,9 @@ class ServingEngine:
         summary["max_concurrent_slots"] = self.max_concurrent
         summary["kv_bytes_per_step"] = (
             self._kv_bytes_sum / max(self.decode_steps, 1))
+        if self.cf_head is not None:
+            summary["cf"] = self.cf_head.summary()
+            summary["cf"]["requests_scored_here"] = self.cf_scored
         if self.pool is not None:
             summary["paged"] = {
                 "num_blocks": self.pool.num_blocks,
@@ -666,6 +821,14 @@ class ServingEngine:
                 "cow_events": self.pool.cow_events,
                 "seal_count": self.pool.seal_count,
             }
+        if self.tracer.enabled or self.metrics is not None:
+            obs: Dict = {}
+            if self.tracer.enabled:
+                obs["span_counts"] = self.tracer.span_names()
+                obs["trace_events"] = len(self.tracer.events)
+            if self.metrics is not None:
+                obs["metrics"] = self.metrics.snapshot()
+            summary["obs"] = obs
         return self.outputs, self.records, summary
 
 

@@ -1,6 +1,5 @@
 """Serving latency/throughput metrics with SLO attainment (port of
-``repro/serving/metrics.py``, with its own copy of the percentile and
-histogram readout it takes from ``repro/obs/metrics.py``).
+``repro/serving/metrics.py``).
 
 All times are seconds on the engine's clock (simulated or wall):
 
@@ -14,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence
+
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -55,37 +56,39 @@ class RequestRecord:
         return bool(ok)
 
 
-def percentile(xs: Sequence[float], q: float) -> float:
-    """Linearly-interpolated percentile (numpy's default method), q in
-    [0, 100].  NaN for an empty sample.
+# Percentile math lives in repro_torch.obs.metrics; re-exported here because
+# serving callers and tests address it as serving.metrics.percentile.
+percentile = obs_metrics.percentile
 
-    Bit-identical to ``np.percentile``: the interpolation replicates
-    numpy's ``_lerp``, which evaluates from the far edge once the
-    fractional rank passes 0.5 (``b - (b - a)*(1 - t)``)."""
-    xs = sorted(float(x) for x in xs)
-    if not xs:
-        return float("nan")
-    if len(xs) == 1:
-        return xs[0]
-    rank = (q / 100.0) * (len(xs) - 1)
-    lo = min(int(math.floor(rank)), len(xs) - 2)
-    t = rank - lo
-    a, b = xs[lo], xs[lo + 1]
-    if t >= 0.5:
-        return b - (b - a) * (1.0 - t)
-    return a + (b - a) * t
+
+class WindowedLatency:
+    """Sliding-window TTFT/TPOT histograms over the most recent
+    observations: two registry histograms (``<name>.ttft_window`` /
+    ``<name>.tpot_window``) whose ``max_samples`` caps the window, so the
+    recent latency picture shows up in the registry snapshot the trace
+    exporter dumps, as in the JAX engine."""
+
+    def __init__(self, registry: "obs_metrics.MetricsRegistry",
+                 name: str, window: int = 64):
+        self._ttft = registry.histogram(f"{name}.ttft_window",
+                                        max_samples=window)
+        self._tpot = registry.histogram(f"{name}.tpot_window",
+                                        max_samples=window)
+
+    def observe_ttft(self, s: float) -> None:
+        self._ttft.observe(s)
+
+    def observe_tpot(self, s: float) -> None:
+        self._tpot.observe(s)
 
 
 def _dist(xs: List[float]) -> Dict[str, float]:
-    """Distribution summary: the JAX package's histogram readout in its exact
-    mode (mean as a left-to-right sum over the samples, exact percentiles),
-    which is the mode every serve run stays in."""
-    if not xs:
-        return {"mean": float("nan"), "p50": float("nan"),
-                "p95": float("nan"), "p99": float("nan")}
-    xs = [float(x) for x in xs]
-    return {"mean": sum(xs) / len(xs), "p50": percentile(xs, 50),
-            "p95": percentile(xs, 95), "p99": percentile(xs, 99)}
+    """Distribution summary via the obs histogram readout -- exact while the
+    sample window holds everything, which it always does for serve runs."""
+    h = obs_metrics.Histogram()
+    for x in xs:
+        h.observe(x)
+    return h.summary()
 
 
 def summarize(records: Sequence[RequestRecord],

@@ -1,16 +1,23 @@
-"""Modeled resident decode-state bytes (the byte models of
-``repro/serving/roofline.py`` that the engine summary reads).
+"""Modeled decode-state bytes (the byte models of
+``repro/serving/roofline.py`` that the engine reads).
 
 ``ServingEngine`` integrates :func:`resident_kv_bytes` over decode steps
 into ``summary["kv_bytes_per_step"]``: every slot pinned at ``max_len``
 rows for a dense layout, the mapped pool blocks for a paged one.  Bytes
 are priced at 2 per element (bf16) whatever the model dtype, and int8 at 1
 plus an f32 scale per (position, head), as in the JAX package, so the
-summary equals the JAX engine's under every layout.  The JAX module's
+summary equals the JAX engine's under every layout.  A traced
+``decode_step`` span carries :func:`decode_attn_read_bytes`, the JAX
+package's model of the KV bytes one step streams (its ``block_k=128`` is
+the TPU kernel's tile, kept so the span args equal the JAX engine's; the
+CUDA kernel reads 64-key spans).  The JAX module's
 time terms (TPU-model FLOP and bandwidth constants) are not copied: no
 speed figure of that chip applies here.
 """
 from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
 
 from repro_torch.config import ArchConfig
 
@@ -73,3 +80,47 @@ def resident_kv_bytes(cfg: ArchConfig, n_slots: int, max_len: int,
     paged_pos, resident = _paged_split_bytes(cfg, max_len, layout.kv_bits)
     return (used_blocks * layout.block_size * paged_pos
             + n_slots * resident)
+
+
+def decode_attn_read_bytes(cfg: ArchConfig, lengths: Sequence[int],
+                           s_max: int, impl: str = "dense",
+                           kv_bits: int = 16,
+                           block_k: int = 128) -> Dict[str, float]:
+    """KV-cache bytes ONE decode step streams through attention, per impl.
+
+    ``lengths`` are the live per-slot prefixes (ragged); ``s_max`` the
+    padded cache capacity.  ``impl="dense"`` models the einsum over the
+    whole padded cache -- every slot pays ``s_max`` positions per
+    attention layer regardless of its length.  ``impl="flash"`` models a
+    length-aware flash-decode kernel: a slot streams only its live KV
+    blocks, ``max(ceil(len/block_k), 1)`` blocks of ``block_k`` positions.
+    Sliding-window layers cap a slot's live positions at the window on
+    both paths.  ``kv_bits=8`` prices the int8-fused variant.
+    """
+    kv_pos = _kv_pos_bytes(cfg.head_dim, cfg.num_kv_heads, kv_bits)
+    total = 0.0
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            cap = s_max
+        elif kind == "local_attn":
+            cap = min(cfg.sliding_window or s_max, s_max)
+        else:
+            continue                     # recurrent layers hold no KV rows
+        if impl == "dense":
+            total += len(lengths) * cap * kv_pos
+        elif impl == "flash":
+            for ln in lengths:
+                bk = min(block_k, cap)
+                n_blocks = max(math.ceil(min(int(ln), cap) / bk), 1)
+                total += min(n_blocks * bk, cap) * kv_pos
+        else:
+            raise ValueError(f"impl {impl!r} (want dense|flash)")
+    if cfg.encoder_layers:
+        total += len(lengths) * cfg.num_layers * cfg.encoder_frames * kv_pos
+    return {
+        "impl": impl, "kv_bits": kv_bits, "block_k": block_k,
+        "n_slots": len(lengths), "s_max": s_max,
+        "mean_utilization": (sum(int(x) for x in lengths)
+                             / max(len(lengths) * s_max, 1)),
+        "attn_read_bytes_per_step": total,
+    }

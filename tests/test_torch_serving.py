@@ -117,9 +117,9 @@ def test_layouts_match_jax_under_pinned_clock(model, layout, impl):
 
 
 def test_outside_the_slice_raises(model):
-    """Paged and int8 layouts are served now; sampled decode, speculative
-    decode, streaming prefill (alone or through the int8/paged
-    compositions), the CF head, engine roles and the metrics registry still
+    """Paged and int8 layouts, the CF head and the metrics registry are
+    served now; sampled decode, speculative decode, streaming prefill
+    (alone or through the int8/paged compositions) and engine roles still
     raise, naming ROADMAP.md."""
     _, _, tcfg, tparams = model
     reqs = ttraffic.generate(ttraffic.TrafficConfig(**TRAFFIC))
@@ -139,7 +139,11 @@ def test_outside_the_slice_raises(model):
                    teng.EngineConfig(n_slots=1, max_len=32, layout=layout),
                    device="cpu")
     backend = teng.make_backend(tcfg, tparams, device="cpu")
-    for kw in (dict(cf_head=object()), dict(role="prefill"),
-               dict(metrics=object())):
-        with pytest.raises(NotImplementedError):
-            teng.ServingEngine(backend, teng.EngineConfig(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        teng.ServingEngine(backend, teng.EngineConfig(), role="prefill")
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import CFHead
+    teng.ServingEngine(backend, teng.EngineConfig(),
+                       cf_head=CFHead.build(n_users=4, n_items=8,
+                                            device="cpu"),
+                       metrics=MetricsRegistry())
