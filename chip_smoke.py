@@ -175,6 +175,22 @@ failing the run with a non-zero exit when its check fails:
    elementwise, within 1e-6 + 1e-5 relative.  HR@10/NDCG@10 and wire bytes
    per step after each run.
 
+Then the hybrid TP x DP step (``runtime/trainer.make_hybrid_train_step``)
+on a one-rank NCCL world (tp = dp = 1), under deterministic algorithms:
+olmo-1b at full width (16 layers, d_model 2048, vocab 50,304, bf16)
+through ``launch/train.py``'s ``run`` for 6 steps at batch 8 x seq 512
+(its 4 micro-batches, lr 1e-4), once with remat forced off and once on: plan
+notes, step ms p50 and tokens/s from the loop's ``train_step`` spans,
+``torch.cuda.max_memory_allocated``; the losses must be equal and the
+peak lower with remat on.  RecLLM-base at full width (float32) through
+the hybrid step with ``recllm_loss`` and replicated CF tables against
+the DP step (flat) on the same 5 seeded batches: losses within 1e-4
+relative (the flash backward at tp 1 against autograd through the
+chunked attention: rounding only).  A checkpoint round trip of a 2-layer
+RecLLM-base in a temporary directory the phase removes: the restored
+state bit-equal to the saved one, and the resumed run's next losses
+within 1e-6 relative of the uninterrupted run's.
+
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -3350,6 +3366,204 @@ def phase_training(torch):
     return report
 
 
+# the hybrid phase: olmo-1b at full width through launch/train.py (its
+# micro-batching: 4 of 2 rows), RecLLM-base hybrid against DP on seeded
+# batches, and a checkpoint round trip of a 2-layer RecLLM-base
+HYBRID_STEPS, HYBRID_BATCH, HYBRID_SEQ = 6, 8, 512
+# the launcher's default lr (1e-3, the JAX launcher's) made olmo-1b's
+# loss climb from 11.09 to 20.46 in 6 steps at full width on the H100
+HYBRID_LR = 1e-4
+HYBRID_REC_STEPS, HYBRID_REC_RTOL = 5, 1e-4
+# the resumed run repeats the uninterrupted one's operations on a
+# bit-equal state under deterministic algorithms: expected equal
+HYBRID_CKPT_STEPS, HYBRID_RESUME_RTOL = 2, 1e-6
+
+
+def _hybrid_state(torch, cfg, n_users, mesh, plan, tcfg, loss_fn, ctx,
+                  batch):
+    """A hybrid step over a fresh RecLLM init (seed 0) and its state."""
+    from repro_torch.core import sharding
+    from repro_torch.recsys import model as recmodel
+    from repro_torch.runtime import trainer
+    dev = torch.device("cuda")
+    full = recmodel.init_recllm(
+        cfg, n_users, torch.Generator(device=dev).manual_seed(0), dev)
+    step, shardings_for = trainer.make_hybrid_train_step(
+        cfg, plan, tcfg, loss_fn, params_shape=full, ctx=ctx)
+    psh, osh, _ = shardings_for(full, batch)
+    params = sharding.device_put(full, psh)
+    state = {"params": params,
+             "opt": trainer.init_hybrid_opt(cfg, plan, params, full)}
+    return step, state, {"params": psh, "opt": osh}
+
+
+def phase_hybrid_training(torch, card):
+    """The hybrid TP x DP step on a one-rank NCCL world (tp = dp = 1):
+    olmo-1b at full width through the training launcher, remat forced off
+    and on; RecLLM-base (float32, full width) through the hybrid step
+    against the DP step; a checkpoint round trip on the device."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.config import (ParallelConfig, ShapeConfig,
+                                    TrainConfig)
+    from repro_torch.core import hierarchical
+    from repro_torch.core.hybrid import auto_plan
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import ModelCtx
+    from repro_torch.obs import Tracer
+    from repro_torch.recsys import model as recmodel
+    from repro_torch.runtime import trainer
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    report = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="hybrid_ckpt_")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        # -- 1. olmo-1b at full width through launch/train.py ------------
+        runs = {}
+        for remat in ("off", "on"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tracer = Tracer()
+            res, plan = train_launcher.run(train_launcher.parse_args([
+                "--arch", "olmo-1b", "--steps", str(HYBRID_STEPS),
+                "--batch", str(HYBRID_BATCH), "--seq", str(HYBRID_SEQ),
+                "--lr", str(HYBRID_LR), "--remat", remat,
+                "--ckpt-dir", os.path.join(tmp, "olmo")]),
+                tracer=tracer)
+            peak = torch.cuda.max_memory_allocated()
+            ms = sorted(1e3 * e["dur"] for e in tracer.events
+                        if e["name"] == "train_step")
+            p50 = float(np.median(ms))
+            runs[remat] = {"losses": res.losses, "peak_bytes": peak,
+                           "step_ms": ms, "step_ms_p50": p50,
+                           "tokens_per_s": HYBRID_BATCH * HYBRID_SEQ
+                           / (p50 / 1e3), "notes": list(plan.notes),
+                           "remat": plan.remat}
+            check(len(res.losses) == HYBRID_STEPS and all(
+                math.isfinite(x) for x in res.losses),
+                f"olmo-1b remat {remat}: losses {res.losses}")
+            print(f"[hybrid] olmo-1b full width bf16, batch {HYBRID_BATCH} "
+                  f"x seq {HYBRID_SEQ}, {plan.pcfg.microbatches} "
+                  f"micro-batches, lr {HYBRID_LR:g}, remat {remat}: plan notes "
+                  f"{list(plan.notes)}; step ms p50 {p50:.1f} (min "
+                  f"{ms[0]:.1f}), {runs[remat]['tokens_per_s']:.0f} "
+                  f"tokens/s; peak {peak / 2**30:.2f} GiB; losses "
+                  f"{[round(x, 4) for x in res.losses]} ({card})")
+        check(runs["on"]["losses"] == runs["off"]["losses"],
+              "olmo-1b: remat changed the losses")
+        check(runs["on"]["peak_bytes"] < runs["off"]["peak_bytes"],
+              "olmo-1b: the peak is not lower with remat on")
+        report["olmo"] = runs
+        print(f"[hybrid] remat on: losses equal, peak "
+              f"{runs['on']['peak_bytes'] / 2**30:.2f} GiB against "
+              f"{runs['off']['peak_bytes'] / 2**30:.2f} GiB off")
+
+        # -- 2. RecLLM-base: the hybrid step against the DP step ----------
+        torch.cuda.empty_cache()
+        cfg, n_users = train_config()
+        hierarchical.init_world_of_one(dev)
+        dp_mesh = hierarchical.make_dp_mesh()
+        mesh = make_host_mesh()
+        rng = np.random.default_rng(7)
+        batches = [{"tokens": rng.integers(3, cfg.vocab_size,
+                                           (TRAIN_BATCH, TRAIN_SEQ)),
+                    "targets": rng.integers(3, cfg.vocab_size,
+                                            (TRAIN_BATCH, TRAIN_SEQ)),
+                    "user": rng.integers(0, n_users, TRAIN_BATCH)}
+                   for _ in range(HYBRID_REC_STEPS)]
+        batches = [{k: torch.from_numpy(v.astype(np.int32)).to(dev)
+                    for k, v in b.items()} for b in batches]
+        ctx = ModelCtx(attn_chunk=TRAIN_SEQ)
+        tcfg = TrainConfig(steps=TRAIN_STEPS, learning_rate=3e-3,
+                           warmup_steps=5, checkpoint_every=0)
+        plan = auto_plan(cfg, mesh, ShapeConfig(
+            "recllm", TRAIN_SEQ, TRAIN_BATCH, "train"), ParallelConfig())
+
+        def hybrid_loss(p, b, c):
+            return recmodel.recllm_loss(cfg, p, b, c)
+
+        step, state, _ = _hybrid_state(torch, cfg, n_users, mesh, plan,
+                                       tcfg, hybrid_loss, ctx, batches[0])
+        hybrid = trainer.train_loop(state, iter(batches), step,
+                                    tcfg).losses
+        del step, state
+        params = recmodel.init_recllm(
+            cfg, n_users, torch.Generator(device=dev).manual_seed(0), dev)
+        from repro_torch.optimizer import adamw
+        dp_step = trainer.make_dp_train_step(
+            lambda p, b: recmodel.recllm_loss(cfg, p, b, ctx)[0], dp_mesh,
+            tcfg, trainer.DPSyncConfig(mode="flat"))
+        flat = trainer.train_loop(
+            {"params": params, "opt": adamw.init_opt_state(params),
+             "residual": torch.zeros(1, device=dev)}, iter(batches),
+            dp_step, tcfg).losses
+        del params
+        worst = max(abs(a - b) / abs(b) for a, b in zip(hybrid, flat))
+        check(worst <= HYBRID_REC_RTOL,
+              f"RecLLM hybrid {hybrid} against DP {flat}")
+        report["recllm"] = {"hybrid": hybrid, "dp_flat": flat,
+                            "max_rel": worst, "notes": list(plan.notes)}
+        print(f"[hybrid] RecLLM-base float32 full width, batch "
+              f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {HYBRID_REC_STEPS} "
+              f"seeded batches: hybrid losses {[round(x, 5) for x in hybrid]}"
+              f" against the DP step's (flat) within {worst:.2e} relative "
+              f"(limit {HYBRID_REC_RTOL:g}); plan notes {list(plan.notes)}")
+
+        # -- 3. a checkpoint round trip on the device ---------------------
+        torch.cuda.empty_cache()
+        cfg2 = dataclasses.replace(cfg, num_layers=2)
+        tcfg2 = dataclasses.replace(tcfg, checkpoint_dir=os.path.join(
+            tmp, "recllm"))
+
+        def loss2(p, b, c):
+            return recmodel.recllm_loss(cfg2, p, b, c)
+
+        step, state, shardings = _hybrid_state(
+            torch, cfg2, n_users, mesh, plan, tcfg2, loss2, ctx, batches[0])
+        n = HYBRID_CKPT_STEPS
+        trainer.train_loop(state, iter(batches[:n]), step, tcfg2)
+        ckpt.save(tcfg2.checkpoint_dir, n, state, shardings=shardings)
+        _, fresh, _ = _hybrid_state(torch, cfg2, n_users, mesh, plan,
+                                    tcfg2, loss2, ctx, batches[0])
+        start, back = trainer.resume_or_init(fresh, tcfg2, shardings)
+        check(start == n, f"resumed at {start}, want {n}")
+        bad = [i for i, (a, b) in enumerate(zip(tree_leaves(back),
+                                                tree_leaves(state)))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        check(not bad, f"restored leaves {bad} differ from the saved ones")
+        ahead = trainer.train_loop(state, iter(batches[n:]), step,
+                                   tcfg2).losses
+        resumed = trainer.train_loop(back, iter(batches[n:]), step, tcfg2,
+                                     start_step=n).losses
+        gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, ahead))
+        check(gap <= HYBRID_RESUME_RTOL,
+              f"resumed losses {resumed} against {ahead}")
+        n_leaves = len(tree_leaves(state))
+        report["checkpoint"] = {"leaves": n_leaves, "ahead": ahead,
+                                "resumed": resumed}
+        print(f"[hybrid] checkpoint round trip (RecLLM-base, 2 layers, "
+              f"float32): {n_leaves} leaves restored bit-equal after "
+              f"{n} steps; {len(resumed)} resumed steps' losses within "
+              f"{gap:.2e} relative (limit {HYBRID_RESUME_RTOL:g}) of the "
+              f"uninterrupted run's {[round(x, 5) for x in ahead]}")
+        del state, back, fresh, step
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
@@ -3433,6 +3647,9 @@ def main(argv=None) -> int:
         report["moe_serving"] = timed("moe_serving", phase_moe_serving)
         report["rwkv6_serving"] = timed("rwkv6_serving", phase_rwkv6_serving)
         report["training"] = timed("training", phase_training)
+        report["hybrid_training"] = timed("hybrid_training",
+                                          phase_hybrid_training,
+                                          report["device"]["card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

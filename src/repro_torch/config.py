@@ -3,13 +3,26 @@ copy of ``repro/config.py``).
 
 Every architecture in :mod:`repro_torch.configs` registers an
 :class:`ArchConfig` here; :class:`TrainConfig` holds the optimizer and loop
-settings.  The TPU hardware constants of the JAX package are left out: no
-speed number of that chip applies to the port.
+settings; :class:`ParallelConfig`, :class:`ShapeConfig` and ``SHAPES`` the
+hybrid-parallelism plan and the assigned input shapes.  The TPU hardware
+constants of the JAX package are left out: no speed number of that chip
+applies to the port.  The planner (``core/hybrid.py``) reads the H100's
+constants below instead.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Hardware model: one NVIDIA H100 SXM5 (80 GB), as the planner reads it
+# (``auto_plan``'s remat rule the memory; the step model of the pipelined
+# slice, ``modeled_parallel_step``, the other two).
+# ---------------------------------------------------------------------------
+
+H100_HBM_BYTES = 80 * 1024**3       # device memory per card
+H100_PEAK_FLOPS_BF16 = 989e12       # dense bf16 tensor-core FLOP/s
+H100_NVLINK_BW = 450e9              # NVLink 4, B/s per direction per card
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +168,46 @@ class ArchConfig:
                 full = full - moe_full + moe_act
             n += full
         return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The hybrid-parallelism plan (paper C1/C2/C5/C6/C8)."""
+
+    dp: int = 1
+    tp: int = 1
+    pp: int = 1                       # pipeline stages (separate mesh when > 1)
+    microbatches: int = 1             # pipeline micro-batches
+    pp_schedule: str = "1f1b"         # 1f1b | gpipe
+    multi_pod: bool = False
+    # activation sharding
+    seq_shard_activations: bool = True   # Megatron-SP residual stream
+    remat: str = "full"               # none | full (checkpoint on layer bodies)
+    # gradient sync (paper C5/C6)
+    grad_sync: str = "auto"           # auto | hierarchical | compressed
+    compression: str = "none"         # none | onebit | topk
+    topk_frac: float = 0.01
+    # async (paper C7; simulation only)
+    async_mode: bool = False
+    max_staleness: int = 4
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,18 @@
 """Flat and hierarchical all-reduce (paper Eq. 8 and C5, §III.B); port of
-``repro/core/hierarchical.py`` over ``torch.distributed``.
+``repro/core/hierarchical.py`` over ``torch.distributed``, and the mesh
+that names the world's ranks by axis.
 
 The JAX functions run inside ``shard_map`` and name mesh axes; here a
-:class:`DPMesh` holds one process group per axis name.  Its ranks are laid
-out pod-major, as ``compat.make_mesh((pods, data), ("pod", "data"))`` lays
-out devices: rank ``r`` sits at ``pod = r // data``, ``data = r % data``.
-The ``data`` group holds the ranks of one pod (the fast intra-pod link),
-the ``pod`` group the ranks with one data index (the slow cross-pod link).
+:class:`DPMesh` holds one process group per axis and per tuple of axes.
+Its axes are ``pod, data, model`` (those present), and its ranks are laid
+out row-major, as ``compat.make_mesh(shape, axes)`` lays out devices:
+rank ``r`` sits at ``model = r % model``, ``data = (r // model) % data``,
+``pod = r // (data * model)``.  The ``data`` group holds the ranks of one
+pod (the fast intra-pod link), the ``pod`` group the ranks with one data
+index (the slow cross-pod link).  A group over several axes lists its
+ranks in ascending order, which is the axes' flattened index taken in
+mesh order (the first axis major): the order in which a tiled
+all-gather over ``PartitionSpec((axes...))`` concatenates shards.
 
 Hierarchical all-reduce reduce-scatters over ``data``, all-reduces the
 1/|data| shard over ``pod`` and all-gathers it back over ``data``: the
@@ -15,37 +21,57 @@ cross-pod link carries 1/|data| of the bytes of a flat all-reduce.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.tree import tree_map
 
-AXES = ("pod", "data")          # mesh axis order, major first
+AXES = ("pod", "data", "model")     # mesh axis order, major first
 
 
 @dataclasses.dataclass(frozen=True)
 class DPMesh:
-    """A (pod, data) layout of the ``torch.distributed`` world."""
+    """A layout of the ``torch.distributed`` world over named axes (a
+    subset of :data:`AXES`, in that order): ``(pod, data)`` for the DP
+    step, ``(pod?, data, model)`` for the hybrid TP x DP step."""
 
-    shape: Dict[str, int]          # axis name -> size
+    shape: Dict[str, int]          # axis name -> size, in mesh order
     coords: Dict[str, int]         # axis name -> this rank's index
-    groups: Dict[str, object]      # axis name -> process group
+    groups: Dict[Tuple[str, ...], object]   # axes (mesh order) -> group
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
 
     def size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in axes)
 
-    def group(self, axes: Sequence[str]):
-        """The process group spanning ``axes``: one axis's group, or the
-        whole world (``None``) for both."""
+    def _key(self, axes: Sequence[str]) -> Tuple[str, ...]:
         axes = tuple(axes)
-        if len(axes) == 1:
-            return self.groups[axes[0]]
-        if sorted(axes) != sorted(AXES):
-            raise ValueError(f"axes {axes} (want one of {AXES}, or both)")
-        return None
+        bad = [a for a in axes if a not in self.shape]
+        if bad or len(set(axes)) != len(axes):
+            raise ValueError(f"axes {axes} (mesh axes {self.axis_names})")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def group(self, axes: Sequence[str]):
+        """The process group spanning ``axes`` (any order; ``None``, the
+        default group, when they span the whole world)."""
+        return self.groups[self._key(axes)]
+
+    def ordered_group(self, axes: Sequence[str]):
+        """:meth:`group` for a collective whose result depends on the
+        order of the ranks (all-gather, reduce-scatter): ``axes`` must be
+        in mesh order, so the group's rank order is their flattened
+        index."""
+        key = self._key(axes)
+        if key != tuple(axes):
+            raise ValueError(f"axes {tuple(axes)} are not in mesh order "
+                             f"{self.axis_names}")
+        return self.groups[key]
 
     def shard_index(self, axes: Sequence[str]) -> int:
         """This rank's index along ``axes`` flattened, the first axis major
@@ -56,27 +82,51 @@ class DPMesh:
         return idx
 
 
+def make_mesh(shape: Dict[str, int]) -> DPMesh:
+    """The world (``torch.distributed`` initialised) laid out row-major
+    over ``shape`` (axis -> size, axes from :data:`AXES` in that order),
+    with a group for every non-empty tuple of axes.  Every rank must call
+    it: each group is created collectively, in the same order."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    names = tuple(shape)
+    if tuple(a for a in AXES if a in shape) != names:
+        raise ValueError(f"mesh axes {names} (want a subset of {AXES}, "
+                         "in that order)")
+    if math.prod(shape.values()) != world:
+        raise ValueError(f"mesh {dict(shape)} does not cover the world of "
+                         f"{world} ranks")
+    sizes = [shape[a] for a in names]
+
+    def coords_of(r):
+        out = {}
+        for a, n in zip(reversed(names), reversed(sizes)):
+            out[a] = r % n
+            r //= n
+        return out
+
+    every = [coords_of(r) for r in range(world)]
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, k):
+            rest = [a for a in names if a not in axes]
+            members: Dict[Tuple[int, ...], list] = {}
+            for r, c in enumerate(every):
+                members.setdefault(tuple(c[a] for a in rest), []).append(r)
+            for ranks in members.values():
+                g = None if len(ranks) == world else dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axes] = g
+    return DPMesh(shape=dict(shape), coords=every[rank], groups=groups)
+
+
 def make_dp_mesh(pods: int = 1) -> DPMesh:
     """The world (``torch.distributed`` initialised) as ``pods`` pods of
     ``world // pods`` ranks, pod-major.  Every rank must call it: each
     group is created collectively."""
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world = dist.get_world_size()
     if world % pods:
         raise ValueError(f"world {world} does not split into {pods} pods")
-    data = world // pods
-    groups = {}
-    for name, members in (
-            ("data", [[p * data + d for d in range(data)]
-                      for p in range(pods)]),
-            ("pod", [[p * data + d for p in range(pods)]
-                     for d in range(data)])):
-        for ranks in members:
-            g = None if len(ranks) == world else dist.new_group(ranks)
-            if rank in ranks:
-                groups[name] = g
-    return DPMesh(shape={"pod": pods, "data": data},
-                  coords={"pod": rank // data, "data": rank % data},
-                  groups=groups)
+    return make_mesh({"pod": pods, "data": world // pods})
 
 
 def init_world_of_one(device) -> DPMesh:
@@ -101,6 +151,49 @@ def all_gather(x: torch.Tensor, mesh: DPMesh, axis: str,
     if tiled:
         return out.reshape((P * x.shape[0],) + tuple(x.shape[1:]))
     return out.reshape((P,) + tuple(x.shape))
+
+
+def gather_dim(x: torch.Tensor, mesh: DPMesh, axes: Sequence[str],
+               dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over ``axes`` (mesh order) concatenated on
+    ``dim`` in their flattened order: the tiled all-gather that undoes a
+    ``PartitionSpec`` entry ``axes`` on that dim."""
+    n = mesh.size(axes)
+    if n == 1:
+        return x
+    out = x.new_empty((n * x.numel(),))
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
+                                group=mesh.ordered_group(axes))
+    shape = tuple(x.shape)
+    return out.reshape((n,) + shape).movedim(0, dim).reshape(
+        shape[:dim] + (n * shape[dim],) + shape[dim + 1:])
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh: DPMesh, axes: Sequence[str],
+                       dim: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axes`` (mesh order), of which
+    this rank keeps its slice of ``dim`` (by its flattened index)."""
+    n = mesh.size(axes)
+    if n == 1:
+        return x
+    shape = tuple(x.shape)
+    if shape[dim] % n:
+        raise ValueError(f"dim {dim} of {shape} does not split over {n}")
+    c = shape[dim] // n
+    flat = x.reshape(shape[:dim] + (n, c) + shape[dim + 1:]).movedim(
+        dim, 0).contiguous().reshape(-1)
+    out = x.new_empty((flat.numel() // n,))
+    dist.reduce_scatter_tensor(out, flat, group=mesh.ordered_group(axes))
+    return out.reshape(shape[:dim] + (c,) + shape[dim + 1:])
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: DPMesh,
+                   axes: Sequence[str]) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``axes`` (a new tensor)."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    if mesh.size(axes) > 1:
+        dist.all_reduce(out, group=mesh.group(axes))
+    return out
 
 
 def flat_allreduce_mean(g: torch.Tensor, mesh: DPMesh, axes) -> torch.Tensor:

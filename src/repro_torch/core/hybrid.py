@@ -1,13 +1,66 @@
-"""The decode-step FLOP model of ``repro/core/hybrid.py`` (a copy of its
-``decode_model_flops``), which the serving engine's traced ``decode_step``
-spans carry.
+"""Hybrid parallelism auto-planner (paper C8, the DeepSpeed/Megatron
+auto-scheduled hybrid scheme of Table 2, row 4); port of
+``repro/core/hybrid.py``.
 
-The rest of that module, the hybrid-parallelism planner over a TPU mesh,
-is not ported yet (``ROADMAP.md``).
+Given (arch, mesh, shape) it derives a per-layer cost model and emits a
+:class:`Plan`: which tensors take TP, whether activations are
+sequence-sharded, remat policy and gradient-sync mode.  Every choice is
+the JAX planner's except remat, which weighs the activations against one
+H100's memory (``config.H100_HBM_BYTES``) instead of a TPU chip's.
+``decode_model_flops`` is the FLOP model the serving engine's traced
+``decode_step`` spans carry.
+
+The pipeline partition (a ``stage`` axis) and ``modeled_parallel_step``
+need ``core/pipeline.py``, which is not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
-from repro_torch.config import ArchConfig
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+from repro_torch.config import (ArchConfig, H100_HBM_BYTES, ParallelConfig,
+                                ShapeConfig)
+from repro_torch.core.sharding import ShardingPlan, make_plan
+
+
+def layer_flops(cfg: ArchConfig, kind: str, layer_idx: int, seq: int) -> float:
+    """Forward FLOPs for one layer at batch=1, given sequence length."""
+    d = cfg.d_model
+    if kind in ("attn", "local_attn"):
+        proj = 2 * seq * d * (cfg.q_dim + 2 * cfg.kv_dim + cfg.q_dim)
+        ctx_len = min(seq, cfg.sliding_window) if kind == "local_attn" and \
+            cfg.sliding_window else seq
+        attn = 2 * seq * ctx_len * cfg.q_dim * 2
+        f = proj + attn
+    elif kind == "mamba":
+        d_in = cfg.ssm_expand * d
+        f = 2 * seq * d * 2 * d_in + 2 * seq * d_in * d \
+            + seq * d_in * cfg.ssm_d_state * 6
+    elif kind == "rwkv6":
+        f = 2 * seq * d * d * 5 + seq * d * cfg.rwkv_head_size * 4
+    else:
+        raise ValueError(kind)
+    # FFN
+    mats = 3 if cfg.mlp_gated else 2
+    if cfg.is_moe and layer_idx % cfg.moe_period == cfg.moe_period - 1:
+        f += 2 * seq * mats * d * cfg.d_ff * cfg.experts_per_token
+    else:
+        f += 2 * seq * mats * d * cfg.d_ff
+    return float(f)
+
+
+def model_flops(cfg: ArchConfig, seq: int, batch: int,
+                training: bool = True) -> float:
+    """6*N*D-style total: fwd (+2x bwd when training) over all layers."""
+    f = sum(layer_flops(cfg, kind, i, seq)
+            for i, kind in enumerate(cfg.layer_kinds()))
+    if cfg.encoder_layers:
+        f += cfg.encoder_layers * layer_flops(cfg, "attn", 0,
+                                              cfg.encoder_frames)
+    f += 2 * seq * cfg.d_model * cfg.padded_vocab      # lm head
+    f *= batch
+    return f * 3 if training else f
 
 
 def decode_model_flops(cfg: ArchConfig, cache_len: int, batch: int) -> float:
@@ -28,3 +81,82 @@ def decode_model_flops(cfg: ArchConfig, cache_len: int, batch: int) -> float:
         f -= 2.0 * cfg.encoder_layers * cfg._layer_params("attn")
         f += cfg.num_layers * 2 * cfg.encoder_frames * cfg.q_dim * 2
     return f * batch
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    sharding: ShardingPlan
+    pcfg: ParallelConfig
+    remat: bool
+    grad_sync: str                    # auto | flat | hierarchical | compressed
+    stage_bounds: Optional[Tuple[int, ...]] = None
+    notes: Tuple[str, ...] = ()
+
+    @property
+    def pp_schedule(self) -> str:
+        return self.pcfg.pp_schedule
+
+    @property
+    def n_micro(self) -> int:
+        return max(self.pcfg.microbatches, 1)
+
+
+def auto_plan(cfg: ArchConfig, mesh, shape: ShapeConfig,
+              pcfg: ParallelConfig = ParallelConfig(),
+              embed_plans=None) -> Plan:
+    """The plan for ``cfg`` training or serving ``shape`` on ``mesh`` (a
+    :class:`~repro_torch.core.hierarchical.DPMesh`, or anything with its
+    ``shape`` dict and ``axis_names``).  ``embed_plans`` (the sharded CF
+    tables) and a ``stage`` axis raise: not ported yet."""
+    if "stage" in mesh.axis_names:
+        raise NotImplementedError(
+            "a 'stage' axis (the pipeline partition) is not ported yet "
+            "(ROADMAP.md)")
+    notes: List[str] = []
+    training = shape.kind == "train"
+    n_chips = math.prod(mesh.shape.values())
+
+    # --- remat: without it, the backward keeps every layer's inner
+    # intermediates (attention chunk tensors, MLP hiddens): O(10-50x) the
+    # residual stream.  Remat whenever even a conservative 8x of the
+    # residual-stream floor would pressure one H100's memory.
+    tokens = shape.global_batch * shape.seq_len
+    act_bytes = tokens * cfg.d_model * 2 * cfg.num_layers / n_chips
+    remat = training and 8 * act_bytes > 0.05 * H100_HBM_BYTES
+    if remat:
+        notes.append(f"remat on (residual floor {act_bytes/1e9:.2f}GB/chip)")
+
+    # --- sequence sharding: only when seq divides and is long enough -------
+    tp = mesh.shape.get("model", 1)
+    seq_shard = pcfg.seq_shard_activations and shape.seq_len % max(tp, 1) == 0 \
+        and shape.seq_len >= 16 * max(tp, 1)
+
+    # --- hybrid choice (paper C8): Megatron TP x DP vs dp_heavy (batch over
+    # every axis + FSDP weight gathering).  Napkin per-step collective cost:
+    #   megatron ~ 5 activation reshards/layer x 3 passes
+    #   dp_heavy ~ weight bytes x (3 gathers + 1 grad reduce-scatter)
+    dp_heavy = False
+    dp_n = math.prod(mesh.shape[a] for a in mesh.axis_names if a != "model")
+    if (training and not cfg.is_moe and tp > 1
+            and shape.global_batch % n_chips == 0):
+        act_bytes = (shape.global_batch // dp_n) * shape.seq_len \
+            * cfg.d_model * 2
+        megatron_coll = 5 * act_bytes * 3 * cfg.num_layers
+        weight_bytes = 2 * cfg.num_params()
+        dp_heavy_coll = 4 * weight_bytes
+        if dp_heavy_coll < megatron_coll:
+            dp_heavy = True
+            notes.append(
+                f"dp_heavy plan (est coll {dp_heavy_coll/1e9:.0f}GB vs "
+                f"megatron {megatron_coll/1e9:.0f}GB)")
+
+    sharding = make_plan(mesh, pcfg, seq_shard=seq_shard, dp_heavy=dp_heavy,
+                         embed_plans=embed_plans)
+
+    # --- gradient sync mode -------------------------------------------------
+    grad_sync = pcfg.grad_sync
+    if grad_sync == "auto":
+        grad_sync = "hierarchical" if "pod" in mesh.axis_names else "auto"
+
+    return Plan(sharding=sharding, pcfg=pcfg, remat=remat,
+                grad_sync=grad_sync, notes=tuple(notes))

@@ -1,0 +1,181 @@
+"""Training launcher: any dense uniform --arch at any scale on the world
+``torchrun`` gives, or on a world of one (port of the hybrid path of
+``repro/launch/train.py``).
+
+The step is ``runtime.trainer.make_hybrid_train_step`` under the plan
+``core.hybrid.auto_plan`` picks for the ``(data, model)`` mesh: Megatron
+TP over ``model`` (or ``dp_heavy``), DP over ``data``, ZeRO-1/2, remat,
+``--pp-micro`` micro-batches of gradient accumulation, checkpoints every
+``max(steps // 4, 10)`` steps into ``--ckpt-dir`` and ``--resume`` from
+the latest.  NCCL on GPUs, gloo on CPUs; runs on the GPU unless
+``--device cpu``; weights are random, drawn from seed 0:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
+      --reduced --steps 50 --batch 16 --seq 64 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch olmo-1b --data 2 --model 2 --steps 20 --batch 8 --seq 512
+
+``--remat on|off`` overrides the plan's remat choice (default ``auto``).
+The pipelined path (``--pp-stages > 1`` and the flags that serve only it:
+``--pp-schedule``, ``--pp-rebalance-every``, ``--grad-sync``) is not
+ported yet and exits non-zero naming ROADMAP.md; ``--host-devices`` (a
+JAX host-platform setting) has no meaning here and is refused.
+"""
+import argparse
+import dataclasses
+import os
+import tempfile
+
+import torch
+import torch.distributed as dist
+
+PIPELINED = ("pp_schedule", "pp_rebalance_every", "grad_sync")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-size config (CPU-friendly, float32)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--data", type=int, default=1, help="dp mesh size")
+    ap.add_argument("--model", type=int, default=1, help="tp mesh size")
+    ap.add_argument("--pp-stages", type=int, default=1,
+                    help="pipeline stages (>1: not ported yet)")
+    ap.add_argument("--pp-micro", type=int, default=4,
+                    help="micro-batches per step (gradient accumulation)")
+    ap.add_argument("--pp-schedule", default=None,
+                    help="pipelined path only (not ported yet)")
+    ap.add_argument("--pp-rebalance-every", type=int, default=None,
+                    help="pipelined path only (not ported yet)")
+    ap.add_argument("--grad-sync", default=None,
+                    help="pipelined path only (not ported yet)")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="JAX's host-device count: refused here")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_train_ckpt"))
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--trace-out", default="",
+                    help="write the training span timeline here (train_step "
+                         "/ checkpoint spans): .jsonl for raw events, "
+                         "anything else for Chrome-trace/Perfetto JSON")
+    ap.add_argument("--remat", default="auto", choices=("auto", "on", "off"),
+                    help="override the plan's remat choice")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.pp_stages > 1 or any(getattr(args, k) is not None
+                                 for k in PIPELINED):
+        ap.error("the pipelined path (--pp-stages > 1, --pp-schedule, "
+                 "--pp-rebalance-every, --grad-sync) is not ported yet; "
+                 "see ROADMAP.md")
+    if args.host_devices is not None:
+        ap.error("--host-devices sets JAX's host-platform device count; the "
+                 "port takes its world from torchrun (or a world of one)")
+    return args
+
+
+def _init_world(device: torch.device) -> None:
+    """The world torchrun describes in the environment, else a world of
+    one."""
+    from repro_torch.core import hierarchical
+    if "WORLD_SIZE" not in os.environ:
+        hierarchical.init_world_of_one(device)
+    else:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+
+
+def run(args: argparse.Namespace, tracer=None):
+    """Train as the flags say; returns (``TrainResult``, plan).  A
+    ``tracer`` given here records the run's spans (``--trace-out`` makes
+    one of its own)."""
+    from repro_torch import convert, resolve_device
+    from repro_torch.config import (ParallelConfig, ShapeConfig,
+                                    TrainConfig, get_arch, list_archs,
+                                    reduced)
+    from repro_torch.core import sharding
+    from repro_torch.core.hybrid import auto_plan
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs import Tracer, write_trace
+    from repro_torch.runtime import trainer
+    from repro_torch.tree import tree_leaves
+
+    if args.arch not in list_archs():
+        raise SystemExit(f"unknown arch {args.arch}; have {list_archs()}")
+    device = resolve_device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    _init_world(device)
+    try:
+        lead = dist.get_rank() == 0
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+        mesh = make_host_mesh(data=args.data, model=args.model)
+        shape = ShapeConfig("cli", args.seq, args.batch, "train")
+        pcfg = ParallelConfig(dp=args.data, tp=args.model, pp=1,
+                              microbatches=args.pp_micro)
+        plan = auto_plan(cfg, mesh, shape, pcfg)
+        if args.remat != "auto":
+            plan = dataclasses.replace(plan, remat=args.remat == "on")
+        tcfg = TrainConfig(steps=args.steps, learning_rate=args.lr,
+                           warmup_steps=max(args.steps // 20, 2),
+                           checkpoint_dir=args.ckpt_dir,
+                           checkpoint_every=max(args.steps // 4, 10))
+        if args.trace_out and tracer is None:
+            tracer = Tracer()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = convert.init_params(cfg, gen, device)
+        n = sum(x.numel() for x in tree_leaves(params))
+        if lead:
+            print(f"{cfg.name}: {n/1e6:.1f}M params on mesh "
+                  f"data={args.data} model={args.model} stage=1; "
+                  f"plan notes: {plan.notes}")
+
+        def batches(start):
+            for b in pipeline.synthetic_lm_batches(
+                    cfg.vocab_size, args.batch, args.seq,
+                    args.steps - start, seed=start):
+                yield {k: torch.from_numpy(v).to(device)
+                       for k, v in b.items()}
+
+        step, shardings_for = trainer.make_hybrid_train_step(
+            cfg, plan, tcfg, params_shape=params)
+        psh, osh, _ = shardings_for(params, next(iter(batches(0))))
+        state_sh = {"params": psh, "opt": osh}
+        shards = sharding.device_put(params, psh)
+        state = {"params": shards, "opt": trainer.init_hybrid_opt(
+            cfg, plan, shards, params)}
+        del params
+        start = 0
+        if args.resume:
+            start, state = trainer.resume_or_init(state, tcfg, state_sh)
+        res = trainer.train_loop(
+            state, batches(start), step, tcfg, start_step=start,
+            samples_per_batch=args.batch, verbose=lead,
+            log_every=max(args.steps // 10, 1), tracer=tracer,
+            shardings=state_sh)
+        if lead:
+            print(f"done: {res.steps_run} steps, host throughput "
+                  f"{res.throughput:.1f} samples/s, final loss "
+                  f"{res.losses[-1]:.4f}")
+            if args.trace_out:
+                nev = write_trace(args.trace_out, tracer)
+                print(f"trace: {nev} events -> {args.trace_out} "
+                      f"(open at https://ui.perfetto.dev)")
+        return res, plan
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None) -> int:
+    run(parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

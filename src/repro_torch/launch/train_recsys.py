@@ -16,8 +16,10 @@ unless ``--device cpu``; weights are random, drawn from ``--seed``:
       repro_torch.launch.train_recsys --full --grad-sync topk
 
 ``--full`` trains RecLLM-base at full width (12 layers, d_model 768); the
-default is ``reduced(recllm-base, layers=4)``.  Checkpointing is not
-ported yet: ``--ckpt-dir`` raises (ROADMAP.md).
+default is ``reduced(recllm-base, layers=4)``.  With ``--ckpt-dir`` the run
+resumes from that directory's latest checkpoint, if any, and checkpoints
+every ``max(steps // 4, 25)`` steps, as the JAX example does (each rank's
+compression residual is saved as its row of the ``(ranks, N)`` array).
 """
 import argparse
 import dataclasses
@@ -29,11 +31,12 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.config import TrainConfig, get_arch, reduced
 from repro_torch.core import hierarchical
+from repro_torch.core.sharding import NamedSharding
 from repro_torch.models.transformer import ModelCtx
 from repro_torch.optimizer import adamw
 from repro_torch.recsys import dataset, metrics, model as recmodel
 from repro_torch.runtime import trainer
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def init_world(device: torch.device) -> hierarchical.DPMesh:
@@ -57,7 +60,8 @@ def main(argv=None) -> int:
     ap.add_argument("--full", action="store_true",
                     help="train the full recllm-base (~178M params)")
     ap.add_argument("--ckpt-dir", default="",
-                    help="checkpoint directory (not ported yet: raises)")
+                    help="checkpoint here and resume from here (default: "
+                         "no checkpoints)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--grad-sync", default="flat",
                     choices=("flat", "hierarchical", "onebit", "topk"))
@@ -71,6 +75,13 @@ def main(argv=None) -> int:
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(device)
     mesh = init_world(device)
+    try:
+        return _train(args, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device, mesh) -> int:
     lead = dist.get_rank() == 0
 
     ds = dataset.generate(scale=args.scale, seed=0)
@@ -97,23 +108,41 @@ def main(argv=None) -> int:
               f"{mesh.size(('data',))} rank(s) on {device}")
 
     scfg = trainer.DPSyncConfig(mode=args.grad_sync)
+    # the residual as this rank's row of JAX's (ranks, N) array
     state = {"params": params, "opt": adamw.init_opt_state(params),
-             "residual": torch.zeros(trainer.residual_size(params, scfg),
+             "residual": torch.zeros((1, trainer.residual_size(params, scfg)),
                                      dtype=torch.float32, device=device)}
+    whole = NamedSharding(mesh, ())
+    shardings = {"params": tree_map(lambda _: whole, state["params"]),
+                 "opt": tree_map(lambda _: whole, state["opt"]),
+                 "residual": NamedSharding(mesh, ("data", None))}
 
     def loss_fn(p, b):
         return recmodel.recllm_loss(cfg, p, b, ctx)[0]
 
-    step = trainer.make_dp_train_step(loss_fn, mesh, tcfg, scfg)
+    dp_step = trainer.make_dp_train_step(loss_fn, mesh, tcfg, scfg)
+
+    def step(params, opt, residual, batch):
+        params, opt, residual, loss = dp_step(params, opt, residual[0],
+                                              batch)
+        return params, opt, residual[None], loss
+
+    # fault tolerance: resume if a previous run died
+    start = 0
+    if args.ckpt_dir:
+        start, state = trainer.resume_or_init(state, tcfg, shardings)
+        if start and lead:
+            print(f"resumed from checkpoint at step {start}")
 
     def batches():
         for b in dataset.seq_batches(ds, args.batch, args.seq,
-                                     steps=args.steps, seed=0):
+                                     steps=args.steps - start, seed=start):
             yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
-    res = trainer.train_loop(state, batches(), step, tcfg,
+    res = trainer.train_loop(state, batches(), step, tcfg, start_step=start,
                              samples_per_batch=args.batch, verbose=lead,
-                             log_every=max(args.steps // 10, 1))
+                             log_every=max(args.steps // 10, 1),
+                             shardings=shardings)
     if lead:
         print(f"throughput: {res.throughput:.1f} samples/s (host)")
 
@@ -132,7 +161,6 @@ def main(argv=None) -> int:
     if lead:
         print(f"HR@10 {float(hr):.4f}  NDCG@10 {float(ndcg):.4f}  "
               f"(random baseline HR@10 ~ {10 / ds.n_items:.4f})")
-    dist.destroy_process_group()
     return 0
 
 

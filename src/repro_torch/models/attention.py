@@ -5,7 +5,11 @@ Implementations of one math contract, selected by ``impl``:
 
 * ``"naive"``   -- materialized (Sq, Sk) scores; test oracle.
 * ``"chunked"`` -- online softmax over KV chunks (the JAX ``lax.scan`` as a
-  Python loop); the plain path the serving engine runs by default.
+  Python loop); the plain path the serving engine runs by default.  With
+  ``flash_vjp`` (training, whole sequences) it runs through
+  :func:`flash_chunked_attention`, whose hand-written backward recomputes
+  each chunk's scores instead of keeping them (the JAX ``_flash`` custom
+  VJP, in plain PyTorch as the JAX backward is jnp).
 * ``"flash"``   -- the CUDA prefill kernel
   (:mod:`repro_torch.kernels.flash_attention`).  It stands for the JAX
   package's ``"pallas"`` value of ``ModelCtx.attn_impl``: same math, the
@@ -22,6 +26,8 @@ the JAX code does (its einsums take low-precision operands with float32
 accumulation).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -114,6 +120,100 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return (acc / l_f).reshape(B, Sq, H, D).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Flash-style backward (port of ``_chunked_fwd_lse`` / ``_flash_fwd`` /
+# ``_flash_bwd``): autograd through the chunked loop keeps every chunk's
+# probabilities; this backward recomputes s/p per chunk and keeps only
+# (q, k, v, out, lse).
+# ---------------------------------------------------------------------------
+
+def _chunked_fwd_lse(q, k, v, *, causal, window, chunk, scale):
+    """The chunked forward (``Sk % chunk == 0``, no ``kv_len``); also
+    returns lse (B, Hk, G, Sq)."""
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, Sq, Hk, G, D)
+    pos_q = torch.arange(Sq, device=q.device)
+    m_run = torch.full((B, Hk, G, Sq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((B, Hk, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, Hk, G, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Sk, chunk):
+        kb, vb = k[:, k0:k0 + chunk], v[:, k0:k0 + chunk]
+        pos_k = k0 + torch.arange(chunk, device=q.device)
+        msk = _mask(pos_q, pos_k, causal=causal, window=window)[None, None,
+                                                                None]
+        s = torch.where(msk, _scores(qg, kb, scale), NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(dim=-1)
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + _pv(p, vb)
+        m_run = m_new
+    l_run = torch.clamp(l_run, min=1e-30)
+    out = (acc / l_run.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
+    return out.reshape(B, Sq, H, D), m_run + torch.log(l_run)
+
+
+class _Flash(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, scale):
+        out, lse = _chunked_fwd_lse(q, k, v, causal=causal, window=window,
+                                    chunk=chunk, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.knobs = (causal, window, chunk, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, chunk, scale = ctx.knobs
+        B, Sq, H, D = q.shape
+        Sk, Hk = k.shape[1], k.shape[2]
+        G = H // Hk
+        qg = q.reshape(B, Sq, Hk, G, D)
+        dog = do.reshape(B, Sq, Hk, G, D)
+        # delta = rowsum(do * out): (B, Hk, G, Sq) f32
+        delta = torch.einsum("bqhgd,bqhgd->bhgq", dog.float(),
+                             out.reshape(B, Sq, Hk, G, D).float())
+        pos_q = torch.arange(Sq, device=q.device)
+        dq = torch.zeros((B, Sq, Hk, G, D), dtype=torch.float32,
+                         device=q.device)
+        dks, dvs = [], []
+        for k0 in range(0, Sk, chunk):
+            kb, vb = k[:, k0:k0 + chunk], v[:, k0:k0 + chunk]
+            pos_k = k0 + torch.arange(chunk, device=q.device)
+            msk = _mask(pos_q, pos_k, causal=causal,
+                        window=window)[None, None, None]
+            p = torch.where(msk, torch.exp(_scores(qg, kb, scale)
+                                           - lse[..., None]), 0.0)
+            pb = p.to(vb.dtype).float()
+            dvs.append(torch.einsum("bhgqk,bqhgd->bkhd", pb,
+                                    dog.float()).to(v.dtype))
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dog.float(), vb.float())
+            dsb = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+            dks.append(torch.einsum("bhgqk,bqhgd->bkhd", dsb,
+                                    qg.float()).to(k.dtype))
+            dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", dsb, kb.float())
+        return (dq.reshape(B, Sq, H, D).to(q.dtype), torch.cat(dks, dim=1),
+                torch.cat(dvs, dim=1), None, None, None, None)
+
+
+def flash_chunked_attention(q, k, v, *, causal=True, window=0, chunk=1024,
+                            softmax_scale=None):
+    """chunked_attention with the hand-written flash backward.  No kv_len
+    masking (the training path); a chunk that does not divide Sk falls
+    back to gcd(chunk, Sk), as in the JAX package."""
+    D = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    chunk = min(chunk, k.shape[1])
+    if k.shape[1] % chunk:
+        chunk = math.gcd(chunk, k.shape[1])
+    return _Flash.apply(q, k, v, causal, window, chunk, scale)
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *, window=0, ring=False,
                      softmax_scale=None, impl="dense", q_lens=None):
     """Decode attention. q:(B,Sq,H,D); caches:(B,S,Hk,D); lengths:(B,) valid
@@ -163,13 +263,19 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=0, ring=False,
 
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=0, kv_len=None,
-              impl="chunked", chunk=1024, softmax_scale=None):
+              impl="chunked", chunk=1024, softmax_scale=None,
+              flash_vjp=False):
     """Public dispatch used by the transformer stack."""
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, kv_len=kv_len,
                                softmax_scale=softmax_scale)
     if impl == "chunked":
+        if flash_vjp and q_offset == 0 and kv_len is None \
+                and q.shape[1] == k.shape[1]:
+            return flash_chunked_attention(q, k, v, causal=causal,
+                                           window=window, chunk=chunk,
+                                           softmax_scale=softmax_scale)
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, kv_len=kv_len,
                                  chunk=chunk, softmax_scale=softmax_scale)

@@ -180,11 +180,20 @@ def _nll(logits, targets):
     return _NLL.apply(logits, targets)
 
 
-def cross_entropy_loss(logits, targets, mask=None):
+def cross_entropy_loss(logits, targets, mask=None, tp=None):
     """Next-token CE over (..., V_padded) logits; ``mask`` zeroes padded
-    positions.  Padded vocab columns are never targets."""
-    nll = _nll(logits, targets)
+    positions.  Padded vocab columns are never targets.  ``tp`` (a
+    :class:`repro_torch.core.sharding.TPHooks`): the logits are this
+    rank's vocab shard, and the mean is over the global batch."""
+    if tp is None:
+        nll = _nll(logits, targets)
+        if mask is None:
+            return torch.mean(nll)
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    nll = tp.nll(logits, targets)
     if mask is None:
-        return torch.mean(nll)
+        return tp.mean(torch.sum(nll), torch.tensor(
+            float(nll.numel()), device=nll.device))
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return tp.mean(torch.sum(nll * mask), torch.sum(mask))

@@ -16,7 +16,13 @@ D)`` pools they were given, and return the same tensors.  Only
 
 :func:`loss_fn` and :func:`chunked_ce` give the training loss; the
 backward is PyTorch's autograd through the ``chunked`` (or ``naive``)
-attention path, since the CUDA attention kernels have no backward yet.
+attention path, or the flash backward of ``ModelCtx.flash_vjp``, since the
+CUDA attention kernels have no backward yet.  ``ModelCtx.remat``
+recomputes each layer in the backward (``torch.utils.checkpoint``, the JAX
+``jax.checkpoint`` on the layer body), and ``ModelCtx.tp``, the hooks of a
+sharding plan (:class:`repro_torch.core.sharding.TPHooks`), runs the
+forward and the loss under Megatron tensor parallelism, sequence
+parallelism and the global loss mean of the hybrid train step.
 
 The rwkv6 family (:mod:`repro_torch.models.ssm`) keeps per layer a
 (B, H, hs, hs) WKV state and two token-shift rows in ``cache["states"]``,
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -53,6 +59,9 @@ class ModelCtx:
     use_kernels: bool = False        # MoE route, rwkv6 WKV: CUDA kernels
     moe_group: int = 256
     moe_capacity_factor: float = 1.25
+    remat: bool = False              # recompute each layer in the backward
+    flash_vjp: bool = False          # flash backward (dp_heavy / no TP)
+    tp: Optional[Any] = None         # core.sharding.TPHooks under a plan
 
 
 def family(cfg: ArchConfig) -> str:
@@ -99,14 +108,21 @@ def _layers(params: Dict, cfg: ArchConfig) -> List[Dict]:
 # Attention and FFN blocks
 # ---------------------------------------------------------------------------
 
-def _qkv(cfg: ArchConfig, p: Dict, h, positions):
+def _qkv(cfg: ArchConfig, p: Dict, h, positions, tp=None):
+    """q, k, v on all heads, or, under ``tp``, on this rank's q heads and
+    the kv heads they read."""
     B, S, _ = h.shape
-    q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    wk, wv = (p["wk"], p["wv"]) if tp is None else tp.kv_weights(p["wk"],
+                                                                 p["wv"])
+    q = (h @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
+    k = (h @ wk).reshape(B, S, -1, cfg.head_dim)
+    v = (h @ wv).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm and "q_norm" in p:
-        q = layers.rms_norm_simple(q, p["q_norm"])
-        k = layers.rms_norm_simple(k, p["k_norm"])
+        qn, kn = p["q_norm"], p["k_norm"]
+        if tp is not None:
+            qn, kn = tp.copy(qn), tp.copy(kn)
+        q = layers.rms_norm_simple(q, qn)
+        k = layers.rms_norm_simple(k, kn)
     q = layers.position_embedding(cfg, q, positions)
     k = layers.position_embedding(cfg, k, positions)
     return q, k, v
@@ -114,12 +130,18 @@ def _qkv(cfg: ArchConfig, p: Dict, h, positions):
 
 def attn_apply(cfg: ArchConfig, p: Dict, x, positions, ctx: ModelCtx,
                *, return_kv: bool = False):
-    """Full-sequence (prefill) self-attention residual branch."""
-    h = layers.apply_norm(cfg, p["norm"], x)
-    q, k, v = _qkv(cfg, p, h, positions)
+    """Full-sequence (train/prefill) self-attention residual branch."""
+    tp = ctx.tp
+    h = layers.apply_norm(cfg, p["norm"] if tp is None else tp.norm(p["norm"]),
+                          x)
+    if tp is not None:
+        h = tp.enter(h)
+    q, k, v = _qkv(cfg, p, h, positions, tp)
     o = attn_lib.attention(q, k, v, causal=True, impl=ctx.attn_impl,
-                           chunk=ctx.attn_chunk)
-    out = o.reshape(x.shape[0], x.shape[1], cfg.q_dim) @ p["wo"]
+                           chunk=ctx.attn_chunk, flash_vjp=ctx.flash_vjp)
+    out = o.reshape(h.shape[0], h.shape[1], -1) @ p["wo"]
+    if tp is not None:
+        out = tp.exit(out)
     return out, ((k, v) if return_kv else None)
 
 
@@ -185,12 +207,20 @@ def ffn_apply(cfg: ArchConfig, p: Dict, x, ctx: ModelCtx, live=None):
     serving prefill): positions masked out are excluded from MoE
     routing/capacity -- see :func:`moe.moe_ffn`.  Dense MLPs are per-token,
     so the mask is irrelevant there (aux None)."""
-    h = layers.apply_norm(cfg, p["norm"], x)
+    tp = ctx.tp
+    h = layers.apply_norm(cfg, p["norm"] if tp is None else tp.norm(p["norm"]),
+                          x)
     if "moe" in p:
+        if tp is not None:
+            raise NotImplementedError(
+                "MoE under a sharding plan (expert parallelism) is not "
+                "ported yet (ROADMAP.md)")
         return moe.moe_ffn(cfg, p["moe"], h, group_size=ctx.moe_group,
                            capacity_factor=ctx.moe_capacity_factor,
                            use_kernel=ctx.use_kernels, live=live)
-    return layers.apply_mlp(cfg, p["mlp"], h), None
+    if tp is None:
+        return layers.apply_mlp(cfg, p["mlp"], h), None
+    return tp.exit(layers.apply_mlp(cfg, p["mlp"], tp.enter(h))), None
 
 
 def _rwkv_forward(cfg, params, h, ctx):
@@ -236,7 +266,13 @@ def forward_hidden(cfg: ArchConfig, params: Dict, batch: Dict,
     check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = layers.embed_tokens(params["embed"], tokens)
+    tp = ctx.tp
+    if tp is not None and family(cfg) != "uniform":
+        raise NotImplementedError(
+            f"{family(cfg)} under a sharding plan is not ported yet "
+            "(ROADMAP.md)")
+    h = (layers.embed_tokens(params["embed"], tokens) if tp is None
+         else tp.embed(params["embed"], tokens))
     if family(cfg) == "rwkv6":          # attention-free: no KV, no aux
         h = _rwkv_forward(cfg, params, h, ctx)
         hidden = layers.apply_norm(cfg, params["final_norm"], h)
@@ -248,28 +284,39 @@ def forward_hidden(cfg: ArchConfig, params: Dict, batch: Dict,
                 < true_len)[None].expand(B, S)
     aux = zero_aux(cfg, h.device)
     ks, vs = [], []
-    for blk in _layers(params, cfg):
-        a_out, kv = attn_apply(cfg, blk["attn"], h, positions, ctx,
+
+    def layer(x, blk):
+        a_out, kv = attn_apply(cfg, blk["attn"], x, positions, ctx,
                                return_kv=collect_kv)
-        h = h + a_out
-        f_out, f_aux = ffn_apply(cfg, blk["ffn"], h, ctx, live=live)
-        h = h + f_out
+        x = x + a_out
+        f_out, f_aux = ffn_apply(cfg, blk["ffn"], x, ctx, live=live)
+        return x + f_out, f_aux, kv
+
+    for blk in _layers(params, cfg):
+        if ctx.remat:
+            h, f_aux, kv = checkpoint(layer, h, blk, use_reentrant=False)
+        else:
+            h, f_aux, kv = layer(h, blk)
         if f_aux is not None:            # a dense MLP adds nothing
             aux = _sum_aux(aux, f_aux)
         if collect_kv:
             ks.append(kv[0])
             vs.append(kv[1])
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    hidden = layers.apply_norm(cfg, params["final_norm"], h)
+    fn = params["final_norm"]
+    hidden = layers.apply_norm(cfg, fn if tp is None else tp.norm(fn), h)
     return hidden, aux, kvs
 
 
 def forward(cfg: ArchConfig, params: Dict, batch: Dict,
             ctx: ModelCtx = ModelCtx(), collect_kv: bool = False,
             true_len=None):
-    """Full-sequence forward.  Returns (logits, aux, kvs)."""
+    """Full-sequence forward.  Returns (logits, aux, kvs); under
+    ``ctx.tp`` the logits are this rank's vocab columns."""
     h, aux, kvs = forward_hidden(cfg, params, batch, ctx, collect_kv,
                                  true_len=true_len)
+    if ctx.tp is not None:
+        h = ctx.tp.enter(h)
     return layers.lm_logits(cfg, params, h), aux, kvs
 
 
@@ -278,7 +325,11 @@ def chunked_ce(cfg: ArchConfig, params: Dict, hidden, targets, mask,
     """LM head + CE in sequence chunks, each recomputed in the backward
     (the JAX ``jax.checkpoint`` under ``lax.scan``): the (B, S, V) logits
     exist one chunk at a time.  A chunk that does not divide S falls back
-    to gcd(chunk, S), as in the JAX package."""
+    to gcd(chunk, S), as in the JAX package.  Under ``ctx.tp`` the head is
+    vocab-parallel over the whole sequence and the mean is global."""
+    tp = ctx.tp
+    if tp is not None:
+        hidden = tp.enter(hidden)
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -286,8 +337,10 @@ def chunked_ce(cfg: ArchConfig, params: Dict, hidden, targets, mask,
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
 
+    nll_fn = layers._nll if tp is None else tp.nll
+
     def one(hc, tc, mc):
-        nll = layers._nll(layers.lm_logits(cfg, params, hc), tc)
+        nll = nll_fn(layers.lm_logits(cfg, params, hc), tc)
         return torch.sum(nll * mc), torch.sum(mc)
 
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -297,6 +350,8 @@ def chunked_ce(cfg: ArchConfig, params: Dict, hidden, targets, mask,
         sc, nc = checkpoint(one, hidden[:, sl], targets[:, sl],
                             mask[:, sl].float(), use_reentrant=False)
         s, n = s + sc, n + nc
+    if tp is not None:
+        return tp.mean(s, n)
     return s / torch.clamp(n, min=1.0)
 
 

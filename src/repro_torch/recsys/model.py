@@ -62,18 +62,25 @@ def fuse(lm_logits, cf_scores, fusion_gate):
 
 def rec_logits(cfg: ArchConfig, params: Dict, batch: Dict,
                ctx: ModelCtx = ModelCtx()):
-    """LM logits fused with CF scores.  batch: tokens (B, S), user (B,)."""
+    """LM logits fused with CF scores.  batch: tokens (B, S), user (B,).
+    Under ``ctx.tp`` the logits are this rank's vocab columns, and the
+    replicated CF tables and gate are used on that shard."""
     lm_logits, aux, _ = tf.forward(cfg, params["lm"], batch, ctx)
-    u = dedup_lookup(params["cf_user"], batch["user"])   # (B, dc)
-    cf = u @ params["cf_item"].T                         # (B, V)
-    return fuse(lm_logits, cf[:, None, :], params["fusion_gate"]), aux
+    cf_user, cf_item = params["cf_user"], params["cf_item"]
+    gate = params["fusion_gate"]
+    if ctx.tp is not None:
+        cf_user, gate = ctx.tp.copy(cf_user), ctx.tp.copy(gate)
+        cf_item = ctx.tp.vocab_rows(cf_item)
+    u = dedup_lookup(cf_user, batch["user"])             # (B, dc)
+    cf = u @ cf_item.T                                   # (B, V)
+    return fuse(lm_logits, cf[:, None, :], gate), aux
 
 
 def recllm_loss(cfg: ArchConfig, params: Dict, batch: Dict,
                 ctx: ModelCtx = ModelCtx()) -> Tuple[torch.Tensor, Dict]:
     logits, _ = rec_logits(cfg, params, batch, ctx)
     loss = layers.cross_entropy_loss(logits, batch["targets"],
-                                     batch.get("mask"))
+                                     batch.get("mask"), tp=ctx.tp)
     return loss, {"ce": loss}
 
 

@@ -1,8 +1,21 @@
-"""The paper's explicit data-parallel train step and the training loop
-(port of ``make_dp_train_step``, ``make_update_rule`` and ``train_loop``
-of ``repro/runtime/trainer.py``).
+"""Training runtime: the hybrid TP x DP train step, the paper's explicit
+data-parallel step, checkpoint/restart fault tolerance and the training
+loop (port of ``make_hybrid_train_step``, ``make_dp_train_step``,
+``make_update_rule``, ``train_loop`` and ``resume_or_init`` of
+``repro/runtime/trainer.py``).
 
-The JAX step runs inside ``shard_map`` over the dp mesh axes; here every
+``make_hybrid_train_step`` is the production path: the JAX step is one
+``jit`` whose shardings come from the ``ShardingPlan`` and whose
+collectives GSPMD emits; here every rank of a ``torch.distributed`` world
+holds its shards of the parameters (TP over ``model``) and of the
+optimizer state (ZeRO-1 over the dp axes), runs the model on its rows of
+each micro-batch under the plan's hooks (``core/sharding.TPHooks``:
+Megatron TP, SP, the global loss mean; ``dp_heavy`` gathers the weights
+instead), reduce-scatters the gradients onto the optimizer shards
+(ZeRO-2), clips by the whole model's norm, updates its shards and
+all-gathers the new parameters over the dp axes.
+
+In ``make_dp_train_step`` the JAX step runs inside ``shard_map`` over the dp mesh axes; here every
 rank of a ``torch.distributed`` world runs it on its slice of the global
 batch (dim 0, in the JAX mesh's device order) and syncs the gradients by
 hand: flat all-reduce (Eq. 8), hierarchical all-reduce (C5), or
@@ -15,8 +28,9 @@ state outside those tables; the residual is this rank's flat
 ``(N_pad,)`` f32 error-feedback state (row ``r`` of JAX's ``(P, N_pad)``).
 
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-the checkpoint manager (``checkpoint_every > 0``), the hybrid GSPMD and
-pipelined steps.
+the pipelined step and the loop's rebalance hook; under the hybrid step,
+MoE (expert parallelism), the rwkv/mamba families, ``embed_plans`` and a
+``stage`` axis.
 """
 from __future__ import annotations
 
@@ -27,12 +41,197 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.config import TrainConfig
+from repro_torch.checkpoint import manager as ckpt
+from repro_torch.config import ArchConfig, TrainConfig
 from repro_torch.core import compression, hierarchical
+from repro_torch.core import sharding as sharding_lib
 from repro_torch.core.hierarchical import DPMesh
+from repro_torch.core.hybrid import Plan
 from repro_torch.embeddings import update as embed_update
+from repro_torch.models import transformer as tf
+from repro_torch.models.transformer import ModelCtx
+from repro_torch.obs.trace import Tracer, or_null
 from repro_torch.optimizer import adamw, schedule
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# ---------------------------------------------------------------------------
+# Hybrid TP x DP train step -- production path
+# ---------------------------------------------------------------------------
+
+def _grad_leaves(tree, bufs, add: bool, stacked: bool = False):
+    """Autograd leaves over ``tree``'s storage, each of which hands its
+    gradient to its slice of ``bufs`` as soon as the backward has it
+    (``add``: summed in; else copied) and drops it.  The stacked (L, ...)
+    leaves under ``blocks`` become a list of one leaf a layer, which the
+    model's layer loop indexes as it indexes the stacked tensor: no
+    layer's gradient is then padded to the whole stack."""
+    if isinstance(tree, dict):
+        return {k: _grad_leaves(tree[k], bufs[k], add,
+                                stacked or k == "blocks") for k in tree}
+
+    def leaf(x, buf):
+        t = x.detach().requires_grad_()
+
+        def take(t):
+            (buf.add_ if add else buf.copy_)(t.grad)
+            t.grad = None
+        t.register_post_accumulate_grad_hook(take)
+        return t
+    if stacked:
+        return [leaf(x, b) for x, b in zip(tree.unbind(0), bufs.unbind(0))]
+    return leaf(tree, bufs)
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    return list(tree) if isinstance(tree, list) else [tree]
+
+
+def _zero_dim(pspec, ospec) -> Optional[int]:
+    """The dim to which ZeRO-1 added the dp axes (``None``: no such)."""
+    pspec = tuple(pspec) + (None,) * (len(ospec) - len(pspec))
+    dims = [i for i, (a, b) in enumerate(zip(pspec, ospec)) if a != b]
+    return dims[0] if dims else None
+
+
+def _zero_dims(cfg: ArchConfig, sh, params_shape):
+    return tree_map(_zero_dim, sh.param_specs(cfg, params_shape),
+                    sh.opt_specs(cfg, params_shape))
+
+
+def _zero_views(params, zdims, mesh: DPMesh, dp):
+    """This rank's ZeRO block of each param shard (a view)."""
+    n, i = mesh.size(dp), mesh.shard_index(dp)
+    return tree_map(lambda p, d: p if d is None else p.narrow(
+        d, i * (p.shape[d] // n), p.shape[d] // n), params, zdims)
+
+
+def init_hybrid_opt(cfg: ArchConfig, plan: Plan, params, params_shape):
+    """``adamw.init_opt_state`` of this rank's ZeRO blocks of its param
+    shards ``params``: what ``sharding.device_put`` of the full state by
+    the opt shardings gives, without building the full state."""
+    sh = plan.sharding
+    return adamw.init_opt_state(_zero_views(
+        params, _zero_dims(cfg, sh, params_shape), sh.mesh, sh.dp_axes))
+
+
+def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
+                           loss_fn: Optional[Callable] = None, *,
+                           params_shape, ctx: Optional[ModelCtx] = None):
+    """Returns (step, shardings_for).
+
+    ``step(params, opt, batch) -> (params, opt, metrics)`` runs on this
+    rank's shards: ``params`` laid out by the plan's param specs, ``opt``
+    (``adamw.init_opt_state`` of the full params) by its opt specs, as
+    ``sharding.device_put(tree, shardings_for(...))`` cuts them; ``batch``
+    is the global batch, of which the step takes this rank's rows of each
+    micro-batch.  ``metrics`` holds the global ``loss`` (the mean over the
+    micro-batches), ``lr`` and ``grad_norm`` (the whole model's, before
+    the clip).  ``shardings_for(params_shape, batch_shape)`` gives the
+    ``NamedSharding`` trees of params, opt and batch (JAX's
+    ``shardings_for``).  The step updates the ``params`` and ``opt``
+    shards it is given in place and returns them (JAX's step donates its
+    arguments' buffers), so neither is held twice.  Each layer's gradient goes into
+    the step's gradient buffers as the backward produces it
+    (:func:`_grad_leaves`), so no second set of gradients is held either.
+
+    ``params_shape`` (the full params, or any tree of their shapes) fixes
+    the specs when the step is built: the JAX step reads them from its
+    jit's arguments.  ``loss_fn(params, batch, ctx) -> (total, aux)``
+    defaults to ``transformer.loss_fn``; the step passes it ``ctx`` (the
+    caller's, default ``ModelCtx()``) with the plan's knobs set as JAX
+    sets them: ``remat``, ``flash_vjp = dp_heavy or tp == 1``, and ``tp``,
+    the hooks of the plan for the micro-batch's shape.
+
+    Micro-batch ``j`` of ``accum = pcfg.microbatches`` holds the global
+    rows ``[j B/accum, (j+1) B/accum)``, as JAX's reshape takes them, cut
+    over the batch axes; gradients accumulate in float32 and the loss and
+    gradients are averaged over the micro-batches.  Each rank's loss is
+    its sum over the global mask count (``TPHooks.mean``), so the
+    gradients summed over the dp axes (ZeRO-2's reduce-scatter) are the
+    global loss's."""
+    sh = plan.sharding
+    mesh = sh.mesh
+    if tf.family(cfg) != "uniform" or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid step trains the dense uniform family; "
+            "MoE (expert parallelism, the FSDP expert rule) and the "
+            "rwkv/mamba TP rules are not ported yet (ROADMAP.md)")
+    M = sh.tp_axis
+    tp_n = mesh.shape[M] if M else 1
+    base = dataclasses.replace(ctx or ModelCtx(), remat=plan.remat,
+                               flash_vjp=sh.dp_heavy or tp_n == 1)
+    if loss_fn is None:
+        def loss_fn(p, b, c):
+            return tf.loss_fn(cfg, p, b, c)
+    accum = max(plan.pcfg.microbatches, 1)
+    dp = sh.dp_axes
+    pspecs = sh.param_specs(cfg, params_shape)
+    ospecs = sh.opt_specs(cfg, params_shape)
+    zdims = _zero_dims(cfg, sh, params_shape)
+    n_b = mesh.size(sh.batch_axes)
+    b_idx = mesh.shard_index(sh.batch_axes)
+    tc_noclip = dataclasses.replace(tcfg, grad_clip=0.0)
+
+    def shardings_for(params_shape, batch_shape):
+        named = sh.named
+        osh = tree_map(named, sh.opt_specs(cfg, params_shape))
+        return (tree_map(named, sh.param_specs(cfg, params_shape)),
+                {"m": osh, "v": osh, "master": osh, "step": named(())},
+                tree_map(named, sh.batch_specs(batch_shape)))
+
+    def rows(batch, j, mb, hooks):
+        """This rank's rows of micro-batch ``j`` (all of it when the
+        micro-batch is replicated over the batch axes)."""
+        lo, n = j * mb, mb
+        if hooks.rep == 1:
+            lo, n = lo + b_idx * (mb // n_b), mb // n_b
+        return {k: v[lo:lo + n] if v.dim() else v for k, v in batch.items()}
+
+    def step(params, opt, batch):
+        lr = schedule.warmup_cosine(opt["step"], tcfg.learning_rate,
+                                    tcfg.warmup_steps, tcfg.steps)
+        B, S = batch["tokens"].shape
+        if B % accum:
+            raise ValueError(f"batch {B} does not split into {accum} "
+                             "micro-batches")
+        mb = B // accum
+        hooks = sharding_lib.TPHooks(sh, cfg, seq_len=S, rows=mb)
+        c = dataclasses.replace(base, tp=hooks)
+        # the gradients: float32 sums over the micro-batches (JAX's scan
+        # carry), or the one micro-batch's in the params' dtypes
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32 if accum > 1 else p.dtype,
+            device=p.device), params)
+        leaves = _grad_leaves(params, grads, add=accum > 1)
+        loss = 0.0
+        for j in range(accum):
+            used = (sharding_lib.gather_weights(leaves, pspecs, mesh, M)
+                    if sh.dp_heavy and M else leaves)
+            total, _ = loss_fn(used, rows(batch, j, mb, hooks), c)
+            torch.autograd.backward(total, inputs=_tensors(leaves))
+            loss = loss + hooks.total(total)
+        with torch.no_grad():
+            if accum > 1:
+                tree_map(lambda g: g.div_(accum), grads)
+            loss = loss / accum
+            # ZeRO-2: each rank keeps only the gradient shard it updates
+            grads = adamw.zero_grads(grads, zdims, mesh, dp)
+            norm = adamw.sharded_global_norm(grads, ospecs, mesh)
+            scale = None
+            if tcfg.grad_clip > 0:
+                scale = torch.clamp(tcfg.grad_clip / torch.clamp(
+                    norm, min=1e-9), max=1.0)
+            views = _zero_views(params, zdims, mesh, dp)
+            _, new_opt = adamw.adamw_apply(views, grads, opt, lr, tc_noclip,
+                                           donate=True, grad_scale=scale)
+            new_params = adamw.zero_params(views, zdims, mesh, dp, params)
+        return new_params, new_opt, {"loss": loss, "lr": lr,
+                                     "grad_norm": norm}
+
+    return step, shardings_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,26 +497,82 @@ class TrainResult:
 
 
 def train_loop(state: Dict[str, Any], batches: Iterator, step_fn: Callable,
-               tcfg: TrainConfig, *, samples_per_batch: int = 0,
-               log_every: int = 10, verbose: bool = False) -> TrainResult:
-    """Generic loop over state = {'params', 'opt', 'residual'} with
+               tcfg: TrainConfig, *, start_step: int = 0,
+               tokens_per_batch: int = 0, samples_per_batch: int = 0,
+               fail_at: Optional[int] = None,
+               rebalance_every: int = 0,
+               rebalance_fn: Optional[Callable] = None,
+               log_every: int = 10, verbose: bool = False,
+               tracer: Optional[Tracer] = None,
+               shardings=None) -> TrainResult:
+    """Generic loop: state = {'params', 'opt', ['residual']}, with
     ``step_fn(params, opt, residual, batch) -> (params, opt, residual,
-    loss)``.  The JAX loop's rebalance hook, tracer and failure injection
-    belong to slices not ported yet."""
-    if tcfg.checkpoint_every:
+    loss)`` when the state has a residual (the DP step), else
+    ``step_fn(params, opt, batch) -> (params, opt, metrics)`` (the hybrid
+    step).
+
+    Every ``tcfg.checkpoint_every`` steps the state is saved to
+    ``tcfg.checkpoint_dir`` (keeping ``tcfg.keep_checkpoints``);
+    ``shardings`` (a tree of ``NamedSharding`` like the state's) lets
+    :func:`repro_torch.checkpoint.manager.save` gather a sharded state.
+
+    ``fail_at``: inject a simulated node failure (raises RuntimeError) after
+    that step commits; the fault-tolerance tests restart from checkpoint.
+
+    ``tracer``: per-step ``train_step`` spans (host wall clock, args
+    ``step``/``loss``) and ``checkpoint`` spans, as the JAX loop's.  The
+    rebalance hook (``rebalance_every``/``rebalance_fn``) serves the
+    pipelined step, which is not ported yet: it raises."""
+    if rebalance_every and rebalance_fn is not None:
         raise NotImplementedError(
-            "checkpoint_every > 0: the checkpoint manager is not ported "
-            "yet (set checkpoint_every=0; see ROADMAP.md)")
+            "the rebalance hook serves the pipelined step, which is not "
+            "ported yet (ROADMAP.md)")
+    tr = or_null(tracer)
     losses = []
     t0 = time.perf_counter()
+    step = start_step
+    n = 0
     for batch in batches:
-        state["params"], state["opt"], state["residual"], loss = step_fn(
-            state["params"], state["opt"], state["residual"], batch)
-        losses.append(float(loss))
-        if verbose and len(losses) % log_every == 0:
-            print(f"step {len(losses)}: loss {losses[-1]:.4f}")
+        with tr.span("train_step", track="train", step=step) as sp:
+            if "residual" in state:
+                state["params"], state["opt"], state["residual"], loss = \
+                    step_fn(state["params"], state["opt"],
+                            state["residual"], batch)
+                metrics = {"loss": loss}
+            else:
+                state["params"], state["opt"], metrics = step_fn(
+                    state["params"], state["opt"], batch)
+            losses.append(float(metrics["loss"]))
+            if tr.enabled:
+                sp.args["loss"] = losses[-1]
+        step += 1
+        n += 1
+        if verbose and step % log_every == 0:
+            print(f"step {step}: loss {losses[-1]:.4f}")
+        if tcfg.checkpoint_every and step % tcfg.checkpoint_every == 0:
+            with tr.span("checkpoint", track="train", step=step):
+                keys = [k for k in ("params", "opt", "residual")
+                        if k in state]
+                ckpt.save(tcfg.checkpoint_dir, step,
+                          {k: state[k] for k in keys},
+                          keep=tcfg.keep_checkpoints,
+                          shardings=(None if shardings is None else
+                                     {k: shardings[k] for k in keys}))
+        if fail_at is not None and step >= fail_at:
+            raise RuntimeError(f"injected failure at step {step}")
     dt = time.perf_counter() - t0
-    n = len(losses)
     tput = samples_per_batch * n / dt if dt > 0 else 0.0
-    return TrainResult(steps_run=n, final_step=n, losses=losses,
+    return TrainResult(steps_run=n, final_step=step, losses=losses,
                        throughput=tput)
+
+
+def resume_or_init(init_state: Dict[str, Any], tcfg: TrainConfig,
+                   shardings=None) -> Tuple[int, Dict[str, Any]]:
+    """Restore the latest valid checkpoint (fault tolerance) or start
+    fresh; ``shardings`` cuts the restored full arrays to this rank's
+    blocks on the current mesh."""
+    step, tree = ckpt.restore_latest(tcfg.checkpoint_dir, init_state,
+                                     shardings)
+    if step is None:
+        return 0, init_state
+    return step, tree
