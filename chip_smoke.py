@@ -191,6 +191,25 @@ RecLLM-base in a temporary directory the phase removes: the restored
 state bit-equal to the saved one, and the resumed run's next losses
 within 1e-6 relative of the uninterrupted run's.
 
+Then the pipelined DP x TP x stage step
+(``runtime/trainer.make_pp_train_step``) on a one-rank NCCL world with a
+``stage`` axis of 1 (NCCL takes one rank a card: no message is sent, but
+the executor, its recompute, the syncs and their kernels run), under
+deterministic algorithms: olmo-1b's widths in float32 cut to 2 layers
+through the pipelined and the hybrid step on the same 3 batches, losses
+within 2e-4 relative + 1e-5 (JAX's tolerance for its pipelined step
+against the DP step); olmo-1b at full width through ``launch/train.py``'s
+``run`` with the pipelined path forced on, batch 8 x seq 512 in 4
+micro-batches, lr 1e-4, under 1F1B and GPipe (flat sync, the hybrid
+phase's 6 steps: losses finite and falling, 1F1B's within 1e-3 relative
+of the hybrid phase's remat-off run on the same batches, the schedules'
+within 1e-3 of each other and printed whether bit-equal; step ms p50,
+tokens/s and peak memory beside the hybrid phase's; 1F1B once more with
+the flash backward, which the hybrid step takes at tp 1) and under 1-bit and top-k sync (2 steps each: each
+step's compression kernels launched as the DP step launches them); and
+``probe_stage_times`` over the 16 full-width layers carved ``[0, 4,
+16]`` with the bounds ``rebalance_stages`` gives (they must move).
+
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -216,6 +235,7 @@ the four layouts and of Qwen3 dense, which must be equal across trees.
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import pathlib
@@ -3429,6 +3449,7 @@ def phase_hybrid_training(torch, card):
         # -- 1. olmo-1b at full width through launch/train.py ------------
         runs = {}
         for remat in ("off", "on"):
+            gc.collect()        # a cycle of an earlier phase holds no tensor
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             tracer = Tracer()
@@ -3564,6 +3585,259 @@ def phase_hybrid_training(torch, card):
     return report
 
 
+# the hybrid phase's steps, batches and lr schedule: the two runs' losses
+# are compared step by step (over the first 4 the loss does not fall on
+# these batches, in either step)
+PP_STEPS, PP_COMPRESSED_STEPS = HYBRID_STEPS, 2
+# bf16 at full width: the hybrid step's flash backward against autograd
+# through the chunked attention, in another order
+PP_HYBRID_RTOL = 1e-3
+# the pipelined step against the hybrid step at float32, olmo-1b's widths
+# cut to 2 layers: JAX's own tolerance for its pipelined step against the
+# DP step (tests/distributed_checks.py)
+PP_PARITY_LAYERS, PP_PARITY_STEPS = 2, 3
+PP_PARITY_RTOL, PP_PARITY_ATOL = 2e-4, 1e-5
+# ... and their params, m, v and master after those steps, each leaf's
+# worst element against the leaf's largest: a gradient off by a constant
+# factor moves m by that factor and v by its square
+PP_STATE_TOL = 1e-5
+PP_PROBE_BOUNDS = [0, 4, 16]
+# launches a pipelined step makes: the DP step's sync, once a step
+PP_LAUNCHES = {"onebit": {"onebit_quantize": 1, "onebit_dequantize": 2},
+               "topk": {"topk_select": 1}}
+
+
+def phase_pipelined_training(torch, card, hybrid):
+    """The pipelined DP x TP x stage step (``trainer.make_pp_train_step``)
+    on a one-rank NCCL world with a ``stage`` axis of 1: no message is
+    sent, but the executor (forward without autograd, the backward's
+    recompute), the syncs and their kernels run.  (a) olmo-1b's widths in
+    float32 cut to 2 layers: the pipelined step's losses against the
+    hybrid step's on the same batches, then its merged params and AdamW
+    state against the hybrid step's (no clip, so a gradient's scale shows
+    in m and v); (b) olmo-1b at full width (bf16) through
+    ``launch/train.py`` under 1F1B and GPipe (flat sync): step ms p50,
+    tokens/s, peak memory.  At a stage axis of 1 the two schedules are the
+    same computation (the only stage is first and last, and the backward
+    ticks take the micro-batches in the same order), so GPipe's run checks
+    that the step is deterministic, not a schedule; (c) 1F1B under 1-bit
+    and top-k sync with the launch counters; (d) ``probe_stage_times``
+    over the 16 full-width layers carved ``[0, 4, 16]`` and the bounds
+    ``rebalance_stages`` gives."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.config import (ParallelConfig, ShapeConfig,
+                                    TrainConfig, get_arch)
+    from repro_torch.core import hierarchical, load_balance, sharding
+    from repro_torch.core.hybrid import auto_plan
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import ModelCtx
+    from repro_torch.obs import Tracer
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime import trainer
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    report = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="pp_ckpt_")
+    # the stage knobs launch/train.py gives the pipelined step at tp 1
+    ctx = ModelCtx(flash_vjp=True)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        # -- a. the pipelined step against the hybrid step (float32) -------
+        cfg = dataclasses.replace(get_arch("olmo-1b"),
+                                  num_layers=PP_PARITY_LAYERS,
+                                  dtype="float32")
+        hierarchical.init_world_of_one(dev)
+        rng = np.random.default_rng(3)
+        batches = [{k: torch.from_numpy(rng.integers(
+            3, cfg.vocab_size, (HYBRID_BATCH, HYBRID_SEQ)).astype(
+                np.int32)).to(dev) for k in ("tokens", "targets")}
+            for _ in range(PP_PARITY_STEPS)]
+        tcfg = TrainConfig(steps=20, learning_rate=HYBRID_LR,
+                           warmup_steps=2, grad_clip=0.0,
+                           checkpoint_every=0)
+        losses, states = {}, {}
+        bounds = [0, cfg.num_layers]
+        for kind in ("hybrid", "pipelined"):
+            torch.cuda.empty_cache()
+            full = convert.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            if kind == "hybrid":
+                plan = auto_plan(cfg, make_host_mesh(), ShapeConfig(
+                    "pp", HYBRID_SEQ, HYBRID_BATCH, "train"),
+                    ParallelConfig(microbatches=4))
+                step, shardings_for = trainer.make_hybrid_train_step(
+                    cfg, plan, tcfg, params_shape=full)
+                psh, _, _ = shardings_for(full, batches[0])
+                params = sharding.device_put(full, psh)
+                state = {"params": params, "opt": trainer.init_hybrid_opt(
+                    cfg, plan, params, full)}
+            else:
+                pp = tf.pp_partition_params(cfg, full, bounds)
+                state = {"params": pp, "opt": adamw.init_opt_state(
+                    trainer.pp_trainable(pp, cfg.tie_embeddings)),
+                    "residual": torch.zeros((1, 1, 1, 0), device=dev)}
+                step = trainer.make_pp_train_step(
+                    cfg, make_host_mesh(stage=1), tcfg, bounds, pp,
+                    n_micro=4, ctx=ctx)
+            del full
+            losses[kind] = trainer.train_loop(state, iter(batches), step,
+                                              tcfg).losses
+            states[kind] = state
+            del state, step
+        worst = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+            losses["pipelined"], losses["hybrid"]))
+        check(all(abs(a - b) <= PP_PARITY_ATOL + PP_PARITY_RTOL * abs(b)
+                  for a, b in zip(losses["pipelined"], losses["hybrid"])),
+              f"pipelined {losses['pipelined']} against hybrid "
+              f"{losses['hybrid']}")
+        # the merged pipelined state against the hybrid step's, leaf by leaf
+        hyb, pst = states["hybrid"], states["pipelined"]
+        pairs = {"params": (hyb["params"], tf.pp_merge_params(
+            cfg, pst["params"], bounds))}
+        for part in ("m", "v", "master"):
+            pairs[part] = (hyb["opt"][part], tf.pp_merge_params(
+                cfg, pst["opt"][part], bounds))
+        state_err = {}
+        for part, (want, got) in pairs.items():
+            wl, gl = tree_leaves(want), tree_leaves(got)
+            check(len(wl) == len(gl) and all(
+                a.shape == b.shape for a, b in zip(wl, gl)),
+                f"pipelined {part}: tree differs from the hybrid step's")
+            state_err[part] = max(
+                float((a.float() - b.float()).abs().max())
+                / max(float(b.float().abs().max()), 1e-30)
+                for a, b in zip(gl, wl))
+        del states, hyb, pst, pairs, want, got, wl, gl
+        check(all(e <= PP_STATE_TOL for e in state_err.values()),
+              f"pipelined state against the hybrid step's: {state_err} "
+              f"(limit {PP_STATE_TOL:g} of each leaf's largest)")
+        report["parity"] = {**losses, "max_rel": worst,
+                            "state_err": state_err}
+        print(f"[pipelined] olmo-1b widths, {PP_PARITY_LAYERS} layers, "
+              f"float32, batch {HYBRID_BATCH} x seq {HYBRID_SEQ} in 4 "
+              f"micro-batches, {PP_PARITY_STEPS} seeded batches: pipelined "
+              f"losses {[round(x, 6) for x in losses['pipelined']]} against "
+              f"the hybrid step's {[round(x, 6) for x in losses['hybrid']]}"
+              f", within {worst:.2e} relative (limit {PP_PARITY_RTOL:g} "
+              f"+ {PP_PARITY_ATOL:g}); after them params, m, v, master "
+              f"within {', '.join(f'{e:.2e}' for e in state_err.values())} "
+              f"of each leaf's largest (limit {PP_STATE_TOL:g})")
+        dist.destroy_process_group()
+
+        # -- b, c. olmo-1b at full width through launch/train.py -----------
+        runs = {}
+        for name, sched, sync, steps in (
+                ("1f1b", "1f1b", "flat", PP_STEPS),
+                ("gpipe", "gpipe", "flat", PP_STEPS),
+                ("onebit", "1f1b", "onebit", PP_COMPRESSED_STEPS),
+                ("topk", "1f1b", "topk", PP_COMPRESSED_STEPS)):
+            gc.collect()        # (a)'s steps and states hold no tensor
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tracer = Tracer()
+            reset_launches()
+            res, plan = train_launcher.run(train_launcher.parse_args([
+                "--arch", "olmo-1b", "--steps", str(steps),
+                "--batch", str(HYBRID_BATCH), "--seq", str(HYBRID_SEQ),
+                "--lr", str(HYBRID_LR), "--pp-micro", "4",
+                "--pp-schedule", sched, "--grad-sync", sync,
+                "--ckpt-dir", os.path.join(tmp, name)]),
+                tracer=tracer, pipelined=True)
+            launches = {k: v for k, v in read_launches().items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            ms = sorted(1e3 * e["dur"] for e in tracer.events
+                        if e["name"] == "train_step")
+            p50 = float(np.median(ms))
+            runs[name] = {"losses": res.losses, "peak_bytes": peak,
+                          "step_ms": ms, "step_ms_p50": p50,
+                          "tokens_per_s": HYBRID_BATCH * HYBRID_SEQ
+                          / (p50 / 1e3), "notes": list(plan.notes),
+                          "launches": launches}
+            check(len(res.losses) == steps and all(
+                math.isfinite(x) for x in res.losses),
+                f"pipelined {name}: losses {res.losses}")
+            want = {k: n * steps for k, n in PP_LAUNCHES.get(sync,
+                                                             {}).items()}
+            check(launches == want, f"pipelined {name}: launches "
+                  f"{launches}, want {want}")
+            print(f"[pipelined] olmo-1b full width bf16, stage 1, "
+                  f"{sched}, {sync} sync, batch {HYBRID_BATCH} x seq "
+                  f"{HYBRID_SEQ}, 4 micro-batches, lr {HYBRID_LR:g}: plan "
+                  f"notes {list(plan.notes)}; step ms p50 {p50:.1f} (min "
+                  f"{ms[0]:.1f}), {runs[name]['tokens_per_s']:.0f} tokens/s;"
+                  f" peak {peak / 2**30:.2f} GiB; launches {launches}; "
+                  f"losses {[round(x, 4) for x in res.losses]} ({card})")
+        for name in ("1f1b", "gpipe"):
+            ls = runs[name]["losses"]
+            check(ls[-1] < ls[0], f"pipelined {name}: losses not falling "
+                  f"{ls}")
+        hl = hybrid["olmo"]["off"]["losses"]
+        check(all(abs(a - b) <= PP_HYBRID_RTOL * abs(b)
+                  for a, b in zip(runs["1f1b"]["losses"], hl)),
+              f"pipelined {runs['1f1b']['losses']} against hybrid {hl}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            runs["1f1b"]["losses"], hl))
+        same = runs["1f1b"]["losses"] == runs["gpipe"]["losses"]
+        gap = max(abs(a - b) for a, b in zip(runs["1f1b"]["losses"],
+                                             runs["gpipe"]["losses"]))
+        check(gap <= 1e-3 * abs(runs["1f1b"]["losses"][0]),
+              f"1F1B {runs['1f1b']['losses']} against GPipe "
+              f"{runs['gpipe']['losses']}")
+        off = hybrid["olmo"]["off"]
+        print(f"[pipelined] 1F1B and GPipe (one computation at a stage "
+              f"axis of 1: a determinism check) losses "
+              f"{'equal bit for bit' if same else f'differ by {gap:.3e}'}; "
+              f"1F1B's within {rel:.2e} relative of the hybrid step's on "
+              f"the same batches (limit {PP_HYBRID_RTOL:g}); "
+              f"1F1B step ms p50 {runs['1f1b']['step_ms_p50']:.1f} and peak "
+              f"{runs['1f1b']['peak_bytes'] / 2**30:.2f} GiB against the "
+              f"hybrid step's {off['step_ms_p50']:.1f} ms and "
+              f"{off['peak_bytes'] / 2**30:.2f} GiB (remat off) and "
+              f"{hybrid['olmo']['on']['step_ms_p50']:.1f} ms, "
+              f"{hybrid['olmo']['on']['peak_bytes'] / 2**30:.2f} GiB (on), "
+              f"this run")
+        report["olmo"] = runs
+        report["schedules_equal"] = same
+        report["hybrid_max_rel"] = rel
+
+        # -- d. the stage-time probe and the rebalance it gives -------------
+        torch.cuda.empty_cache()
+        cfg = get_arch("olmo-1b")
+        full = convert.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        pp = tf.pp_partition_params(cfg, full, PP_PROBE_BOUNDS)
+        del full
+        times = trainer.probe_stage_times(cfg, pp, PP_PROBE_BOUNDS, ctx,
+                                          batch=2, seq=HYBRID_SEQ, iters=5)
+        new = load_balance.rebalance_stages(times, PP_PROBE_BOUNDS)
+        del pp
+        check(all(t > 0 for t in times) and len(new) == 3
+              and new != PP_PROBE_BOUNDS,
+              f"probe {times} -> bounds {new}")
+        report["probe"] = {"bounds": PP_PROBE_BOUNDS, "stage_s": times,
+                           "rebalanced": new}
+        print(f"[pipelined] probe_stage_times, olmo-1b full width bf16, "
+              f"bounds {PP_PROBE_BOUNDS}, a micro-batch of 2 x "
+              f"{HYBRID_SEQ}: stage ms {[round(1e3 * t, 3) for t in times]}"
+              f" -> rebalance_stages {new} ({card})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
@@ -3580,6 +3854,7 @@ def main(argv=None) -> int:
                          "(routing device time, TTFT, TPOT, kernels a "
                          "decode step, greedy streams under every layout)")
     ap.add_argument("--moe-probe", default="", help=argparse.SUPPRESS)
+
     args = ap.parse_args(argv)
     # cuBLAS on a fixed workspace configuration, which torch requires to run
     # cuBLAS under deterministic algorithms (the training phase)
@@ -3650,6 +3925,9 @@ def main(argv=None) -> int:
         report["hybrid_training"] = timed("hybrid_training",
                                           phase_hybrid_training,
                                           report["device"]["card"])
+        report["pipelined_training"] = timed(
+            "pipelined_training", phase_pipelined_training,
+            report["device"]["card"], report["hybrid_training"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -4,10 +4,12 @@ that names the world's ranks by axis.
 
 The JAX functions run inside ``shard_map`` and name mesh axes; here a
 :class:`DPMesh` holds one process group per axis and per tuple of axes.
-Its axes are ``pod, data, model`` (those present), and its ranks are laid
-out row-major, as ``compat.make_mesh(shape, axes)`` lays out devices:
-rank ``r`` sits at ``model = r % model``, ``data = (r // model) % data``,
-``pod = r // (data * model)``.  The ``data`` group holds the ranks of one
+Its axes are ``pod, data, model, stage`` (those present), and its ranks
+are laid out row-major, as ``compat.make_mesh(shape, axes)`` lays out
+devices: without a stage axis rank ``r`` sits at ``model = r % model``,
+``data = (r // model) % data``, ``pod = r // (data * model)``; the
+pipelined step's ``stage`` axis comes last, as JAX's ``make_host_mesh``
+appends it, so neighbouring stages are neighbouring ranks.  The ``data`` group holds the ranks of one
 pod (the fast intra-pod link), the ``pod`` group the ranks with one data
 index (the slow cross-pod link).  A group over several axes lists its
 ranks in ascending order, which is the axes' flattened index taken in
@@ -17,6 +19,9 @@ all-gather over ``PartitionSpec((axes...))`` concatenates shards.
 Hierarchical all-reduce reduce-scatters over ``data``, all-reduces the
 1/|data| shard over ``pod`` and all-gathers it back over ``data``: the
 cross-pod link carries 1/|data| of the bytes of a flat all-reduce.
+
+:func:`neighbour` and :func:`exchange` are the pipeline's point-to-point
+messages between stages (``core/pipeline.py``).
 """
 from __future__ import annotations
 
@@ -30,14 +35,15 @@ import torch.distributed as dist
 
 from repro_torch.tree import tree_map
 
-AXES = ("pod", "data", "model")     # mesh axis order, major first
+AXES = ("pod", "data", "model", "stage")   # mesh axis order, major first
 
 
 @dataclasses.dataclass(frozen=True)
 class DPMesh:
     """A layout of the ``torch.distributed`` world over named axes (a
     subset of :data:`AXES`, in that order): ``(pod, data)`` for the DP
-    step, ``(pod?, data, model)`` for the hybrid TP x DP step."""
+    step, ``(pod?, data, model)`` for the hybrid TP x DP step, ``(data,
+    model, stage)`` for the pipelined step."""
 
     shape: Dict[str, int]          # axis name -> size, in mesh order
     coords: Dict[str, int]         # axis name -> this rank's index
@@ -137,6 +143,31 @@ def init_world_of_one(device) -> DPMesh:
     store = dist.TCPStore("127.0.0.1", 0, 1, True)    # a free local port
     dist.init_process_group(backend, store=store, rank=0, world_size=1)
     return make_dp_mesh()
+
+
+def neighbour(mesh: DPMesh, axis: str, offset: int) -> int:
+    """The global rank ``offset`` places along ``axis`` from this rank
+    (every other coordinate the same)."""
+    coords = dict(mesh.coords)
+    coords[axis] += offset
+    if not 0 <= coords[axis] < mesh.shape[axis]:
+        raise ValueError(f"no rank at {axis} {coords[axis]}")
+    r = 0
+    for a in mesh.axis_names:
+        r = r * mesh.shape[a] + coords[a]
+    return r
+
+
+def exchange(ops, tag: int = 0) -> None:
+    """Point-to-point messages, posted together and waited for:
+    ``ops`` holds ``("send", tensor, rank)`` and ``("recv", tensor,
+    rank)`` (a receive fills its contiguous tensor in place), ranks
+    global.  Posting both directions of a pipeline tick in one batch is
+    what keeps two neighbours that send to each other from deadlocking."""
+    p2p = [dist.P2POp(dist.isend if kind == "send" else dist.irecv, t,
+                      peer, tag=tag) for kind, t, peer in ops]
+    for work in dist.batch_isend_irecv(p2p):
+        work.wait()
 
 
 def all_gather(x: torch.Tensor, mesh: DPMesh, axis: str,

@@ -4,23 +4,25 @@ auto-scheduled hybrid scheme of Table 2, row 4); port of
 
 Given (arch, mesh, shape) it derives a per-layer cost model and emits a
 :class:`Plan`: which tensors take TP, whether activations are
-sequence-sharded, remat policy and gradient-sync mode.  Every choice is
-the JAX planner's except remat, which weighs the activations against one
-H100's memory (``config.H100_HBM_BYTES``) instead of a TPU chip's.
+sequence-sharded, remat policy, gradient-sync mode and, on a mesh with a
+``stage`` axis, the layer->stage bounds.  Every choice is the JAX
+planner's except remat, which weighs the activations against one H100's
+memory (``config.H100_HBM_BYTES``) instead of a TPU chip's.
 ``decode_model_flops`` is the FLOP model the serving engine's traced
-``decode_step`` spans carry.
-
-The pipeline partition (a ``stage`` axis) and ``modeled_parallel_step``
-need ``core/pipeline.py``, which is not ported yet (``ROADMAP.md``).
+``decode_step`` spans carry; :func:`modeled_parallel_step` prices a DP x
+TP x PP step on H100 constants.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-from repro_torch.config import (ArchConfig, H100_HBM_BYTES, ParallelConfig,
+from repro_torch.config import (ArchConfig, H100_HBM_BYTES, H100_NVLINK_BW,
+                                H100_PEAK_FLOPS_BF16, ParallelConfig,
                                 ShapeConfig)
+from repro_torch.core import load_balance
+from repro_torch.core.pipeline import schedule_cost
 from repro_torch.core.sharding import ShardingPlan, make_plan
 
 
@@ -107,11 +109,7 @@ def auto_plan(cfg: ArchConfig, mesh, shape: ShapeConfig,
     """The plan for ``cfg`` training or serving ``shape`` on ``mesh`` (a
     :class:`~repro_torch.core.hierarchical.DPMesh`, or anything with its
     ``shape`` dict and ``axis_names``).  ``embed_plans`` (the sharded CF
-    tables) and a ``stage`` axis raise: not ported yet."""
-    if "stage" in mesh.axis_names:
-        raise NotImplementedError(
-            "a 'stage' axis (the pipeline partition) is not ported yet "
-            "(ROADMAP.md)")
+    tables) raises: not ported yet."""
     notes: List[str] = []
     training = shape.kind == "train"
     n_chips = math.prod(mesh.shape.values())
@@ -158,5 +156,88 @@ def auto_plan(cfg: ArchConfig, mesh, shape: ShapeConfig,
     if grad_sync == "auto":
         grad_sync = "hierarchical" if "pod" in mesh.axis_names else "auto"
 
+    # --- pipeline partition (only when a stage axis exists) -----------------
+    bounds = None
+    if "stage" in mesh.axis_names:
+        costs = [layer_flops(cfg, kind, i, shape.seq_len)
+                 for i, kind in enumerate(cfg.layer_kinds())]
+        bounds = tuple(load_balance.balance_stages(costs,
+                                                   mesh.shape["stage"]))
+        notes.append(f"stage bounds {bounds}")
+        if mesh.shape["stage"] > 1:
+            bub = schedule_cost(pcfg.pp_schedule, mesh.shape["stage"],
+                                max(pcfg.microbatches, 1))["bubble_frac"]
+            notes.append(f"pp {pcfg.pp_schedule} x{pcfg.microbatches} "
+                         f"bubble {bub:.2f}")
+
     return Plan(sharding=sharding, pcfg=pcfg, remat=remat,
-                grad_sync=grad_sync, notes=tuple(notes))
+                grad_sync=grad_sync, stage_bounds=bounds,
+                notes=tuple(notes))
+
+
+# ---------------------------------------------------------------------------
+# Analytic DP x TP x PP step model (the ``train-parallel`` benchmark rows)
+# ---------------------------------------------------------------------------
+
+def modeled_parallel_step(cfg: ArchConfig, shape: ShapeConfig, *,
+                          dp: int = 1, tp: int = 1, pp: int = 1,
+                          n_micro: int = 8, schedule: str = "1f1b",
+                          zero1: bool = True) -> Dict[str, float]:
+    """A roofline for one training step under a DP x TP x PP plan, on
+    the H100's constants: ``config.H100_PEAK_FLOPS_BF16`` (989 TFLOP/s
+    dense bf16), ``H100_NVLINK_BW`` (450 GB/s a direction a card) and
+    ``H100_HBM_BYTES`` (80 GiB).  These are the card's figures, not a
+    measurement; JAX's model takes a TPU v5e chip's.
+
+    Terms (per device, ring-collective byte model):
+
+    * compute -- ``model_flops / (n_dev * peak)``;
+    * DP -- gradient all-reduce of this rank's parameter shard;
+    * TP -- Megatron activation all-reduces: 2 branch reductions per layer
+      forward and their backward conjugates (4 activation-sized
+      all-reduces per layer-pass) over the device's ``L/pp`` layers;
+    * PP -- boundary activation sends (fwd) + cotangent sends (bwd);
+    * bubble -- the schedule's idle fraction (``pipeline.schedule_cost``)
+      stretches the busy span by ``1/(1-bubble)`` when pp > 1.
+
+    Memory feasibility is part of the model: per-device bytes = params
+    (bf16) + grads (f32) + optimizer (m, v, master in f32; ZeRO-1 over dp
+    when ``zero1``); an infeasible plan reports ``throughput = 0`` with
+    ``fits = False``.
+    """
+    n_dev = dp * tp * pp
+    N = cfg.num_params()
+    flops = model_flops(cfg, shape.seq_len, shape.global_batch,
+                        training=True)
+    t_compute = flops / (n_dev * H100_PEAK_FLOPS_BF16)
+
+    def ring(k, b):
+        return 2 * b * (k - 1) / k if k > 1 else 0.0
+    # DP: all-reduce this rank's grad shard (f32 master grads)
+    t_dp = ring(dp, 4 * N / (tp * pp)) / H100_NVLINK_BW
+    # TP: 4 act-sized all-reduces per layer over the device's local layers
+    L = cfg.num_layers
+    act = (shape.global_batch // max(dp, 1)) * shape.seq_len * cfg.d_model * 2
+    t_tp = ring(tp, 4 * (L / pp) * act) / H100_NVLINK_BW
+    # PP: neighbour sends, activation fwd + cotangent bwd per micro-batch
+    t_pp = (2 * act * 2 / H100_NVLINK_BW) if pp > 1 else 0.0
+    t_coll = t_dp + t_tp + t_pp
+
+    bubble = schedule_cost(schedule, pp, n_micro)["bubble_frac"] \
+        if pp > 1 else 0.0
+    t_busy = max(t_compute, t_coll)
+    t_step = t_busy / max(1.0 - bubble, 1e-9)
+
+    # memory feasibility from the resident state: weights bf16 + grads f32
+    # + adamw m/v/master f32 (ZeRO-1 over dp); activations left out
+    state = (2 + 4) * N / (tp * pp) + 12 * N / (tp * pp * (dp if zero1
+                                                           else 1))
+    fits = state < H100_HBM_BYTES
+    tput = shape.global_batch / t_step if fits else 0.0
+    return {"dp": dp, "tp": tp, "pp": pp, "n_micro": n_micro,
+            "schedule": schedule, "fits": bool(fits),
+            "state_gb_per_dev": state / 1e9,
+            "t_compute_ms": t_compute * 1e3, "t_dp_ms": t_dp * 1e3,
+            "t_tp_ms": t_tp * 1e3, "t_pp_ms": t_pp * 1e3,
+            "bubble_frac": bubble, "t_step_ms": t_step * 1e3,
+            "modeled_throughput": tput}

@@ -13,9 +13,9 @@ name is that name; :func:`P` builds one).  Every sharded dim is
 divisibility-guarded: a dim that does not divide over its axes falls back
 to replication.  The rules of every family are copied (pure logic); the
 hybrid train step (``runtime/trainer.py``) runs the dense uniform family
-only.  ``embed_plans`` (the sharded CF tables), ``cache_specs`` (serving)
-and ``pp_stage_specs`` (the pipelined step) are not ported yet
-(``ROADMAP.md``).
+only.  :func:`pp_stage_specs` lays out the pipelined step's stage stack.
+``embed_plans`` (the sharded CF tables) and ``cache_specs`` (serving) are
+not ported yet (``ROADMAP.md``).
 
 Under GSPMD ``constrain`` pins activation shardings and XLA inserts the
 collectives; here :class:`TPHooks` is that placement done by hand, through
@@ -258,6 +258,43 @@ class ShardingPlan:
         return _map_with_path(rule, batch_shape)
 
 
+def pp_stage_specs(cfg: ArchConfig, stage_shape, mesh,
+                   tp_axis: str = "model", stage_axis: str = "stage") -> Any:
+    """Specs for the stage-stacked uniform blocks ({"blocks": (S, L_max,
+    ...), "mask": (S, L_max)} from ``transformer.stage_slice_params``):
+    leading dim over ``stage_axis``, Megatron TP dims over ``tp_axis``
+    where head / d_ff counts divide (non-dividing dims replicate, the
+    guard rule of ``param_specs``).  The pipelined step cuts its stage
+    by them, and reads "has a tp dim" to tell exact local gradient shards
+    from per-rank partials that need a sum over ``tp_axis``."""
+    tp = mesh.shape.get(tp_axis, 1)
+    q_ok = cfg.num_heads % tp == 0
+    kv_ok = cfg.num_kv_heads % tp == 0
+    ff_ok = cfg.d_ff % tp == 0
+    M = tp_axis
+
+    def rule(names, leaf):
+        last = names[-1]
+        nd = len(leaf.shape)
+        if last == "mask":
+            return P(stage_axis, None)
+        if last == "wq":
+            base = (None, M if q_ok else None)
+        elif last in ("wk", "wv"):
+            base = (None, M if kv_ok else None)
+        elif last == "wo" and "attn" in names:
+            base = (M if q_ok else None, None)
+        elif last in ("wi", "wi_gate", "wi_up"):
+            base = (None, M if ff_ok else None)
+        elif last == "wo":                          # mlp down-projection
+            base = (M if ff_ok else None, None)
+        else:                                       # norms, qk_norm
+            base = (None,) * max(nd - 2, 0)
+        return P(stage_axis, *((None,) * (nd - 1 - len(base)) + base))
+
+    return _map_with_path(rule, stage_shape)
+
+
 def spec_has_axis(spec: Tuple, axis: str) -> bool:
     return any(axis in _axes(dim) for dim in spec)
 
@@ -269,10 +306,6 @@ def make_plan(mesh: DPMesh, pcfg: ParallelConfig,
     if embed_plans:
         raise NotImplementedError(
             "embed_plans (the sharded CF-table plans) are not ported yet "
-            "(ROADMAP.md)")
-    if "stage" in mesh.axis_names:
-        raise NotImplementedError(
-            "a 'stage' axis (the pipelined step) is not ported yet "
             "(ROADMAP.md)")
     axes = set(mesh.axis_names)
     dp_axes = tuple(a for a in ("pod", "data") if a in axes)

@@ -1,6 +1,5 @@
 """Training launcher: any dense uniform --arch at any scale on the world
-``torchrun`` gives, or on a world of one (port of the hybrid path of
-``repro/launch/train.py``).
+``torchrun`` gives, or on a world of one (port of ``repro/launch/train.py``).
 
 The step is ``runtime.trainer.make_hybrid_train_step`` under the plan
 ``core.hybrid.auto_plan`` picks for the ``(data, model)`` mesh: Megatron
@@ -15,11 +14,22 @@ the latest.  NCCL on GPUs, gloo on CPUs; runs on the GPU unless
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch olmo-1b --data 2 --model 2 --steps 20 --batch 8 --seq 512
 
-``--remat on|off`` overrides the plan's remat choice (default ``auto``).
-The pipelined path (``--pp-stages > 1`` and the flags that serve only it:
-``--pp-schedule``, ``--pp-rebalance-every``, ``--grad-sync``) is not
-ported yet and exits non-zero naming ROADMAP.md; ``--host-devices`` (a
-JAX host-platform setting) has no meaning here and is refused.
+``--pp-stages N`` (N > 1) switches to the pipelined DP x TP x stage path
+(``trainer.make_pp_train_step``) on a ``(data, model, stage)`` mesh: the
+planner's balanced layer bounds slice the transformer into stages, the
+1F1B (or GPipe, ``--pp-schedule``) schedule drives them over
+``--pp-micro`` micro-batches, the DP gradient sync (``--grad-sync``)
+composes across ``data``, ``--pp-rebalance-every K`` re-carves the
+bounds from measured stage times every K steps, and the checkpoints
+carry the bounds, which ``--resume`` restores:
+
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch olmo-1b --data 2 --model 2 --pp-stages 2 --pp-micro 4 \\
+      --steps 10 --batch 16 --seq 512
+
+``--remat on|off`` overrides the hybrid plan's remat choice (default
+``auto``); ``--host-devices`` (a JAX host-platform setting) has no
+meaning here and is refused.
 """
 import argparse
 import dataclasses
@@ -28,8 +38,6 @@ import tempfile
 
 import torch
 import torch.distributed as dist
-
-PIPELINED = ("pp_schedule", "pp_rebalance_every", "grad_sync")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,15 +51,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--data", type=int, default=1, help="dp mesh size")
     ap.add_argument("--model", type=int, default=1, help="tp mesh size")
     ap.add_argument("--pp-stages", type=int, default=1,
-                    help="pipeline stages (>1: not ported yet)")
+                    help="pipeline stages (>1 enables the pipelined path)")
     ap.add_argument("--pp-micro", type=int, default=4,
-                    help="micro-batches per step (gradient accumulation)")
-    ap.add_argument("--pp-schedule", default=None,
-                    help="pipelined path only (not ported yet)")
-    ap.add_argument("--pp-rebalance-every", type=int, default=None,
-                    help="pipelined path only (not ported yet)")
-    ap.add_argument("--grad-sync", default=None,
-                    help="pipelined path only (not ported yet)")
+                    help="pipeline micro-batches per step (on the hybrid "
+                         "path: gradient accumulation)")
+    ap.add_argument("--pp-schedule", default="1f1b",
+                    choices=("1f1b", "gpipe"))
+    ap.add_argument("--pp-rebalance-every", type=int, default=0,
+                    help="every K steps, re-carve the layer->stage bounds "
+                         "from measured per-stage times and live-remap "
+                         "params/optimizer (0 = off)")
+    ap.add_argument("--grad-sync", default="flat",
+                    choices=("flat", "hierarchical", "onebit", "topk"),
+                    help="DP gradient sync mode on the pipelined path")
     ap.add_argument("--host-devices", type=int, default=None,
                     help="JAX's host-device count: refused here")
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -60,17 +72,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--trace-out", default="",
                     help="write the training span timeline here (train_step "
-                         "/ checkpoint spans): .jsonl for raw events, "
+                         "/ rebalance.probe / checkpoint spans, plus "
+                         "per-stage stage_tick spans from rebalance probes "
+                         "on the pipelined path): .jsonl for raw events, "
                          "anything else for Chrome-trace/Perfetto JSON")
     ap.add_argument("--remat", default="auto", choices=("auto", "on", "off"),
-                    help="override the plan's remat choice")
+                    help="override the hybrid plan's remat choice")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.pp_stages > 1 or any(getattr(args, k) is not None
-                                 for k in PIPELINED):
-        ap.error("the pipelined path (--pp-stages > 1, --pp-schedule, "
-                 "--pp-rebalance-every, --grad-sync) is not ported yet; "
-                 "see ROADMAP.md")
     if args.host_devices is not None:
         ap.error("--host-devices sets JAX's host-platform device count; the "
                  "port takes its world from torchrun (or a world of one)")
@@ -87,20 +96,19 @@ def _init_world(device: torch.device) -> None:
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
 
 
-def run(args: argparse.Namespace, tracer=None):
+def run(args: argparse.Namespace, tracer=None, pipelined=None):
     """Train as the flags say; returns (``TrainResult``, plan).  A
     ``tracer`` given here records the run's spans (``--trace-out`` makes
-    one of its own)."""
+    one of its own).  ``pipelined`` forces the pipelined path on (at any
+    ``--pp-stages``, a ``stage`` axis of 1 included) or off; by default it
+    runs when ``--pp-stages > 1``."""
     from repro_torch import convert, resolve_device
     from repro_torch.config import (ParallelConfig, ShapeConfig,
                                     TrainConfig, get_arch, list_archs,
                                     reduced)
-    from repro_torch.core import sharding
     from repro_torch.core.hybrid import auto_plan
-    from repro_torch.data import pipeline
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.obs import Tracer, write_trace
-    from repro_torch.runtime import trainer
     from repro_torch.tree import tree_leaves
 
     if args.arch not in list_archs():
@@ -109,16 +117,21 @@ def run(args: argparse.Namespace, tracer=None):
     if device.type == "cuda" and "LOCAL_RANK" in os.environ:
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(device)
+    pp = max(args.pp_stages, 1)
+    if pipelined is None:
+        pipelined = pp > 1
     _init_world(device)
     try:
         lead = dist.get_rank() == 0
         cfg = get_arch(args.arch)
         if args.reduced:
             cfg = dataclasses.replace(reduced(cfg), dtype="float32")
-        mesh = make_host_mesh(data=args.data, model=args.model)
+        mesh = make_host_mesh(data=args.data, model=args.model,
+                              stage=pp if pipelined else 0)
         shape = ShapeConfig("cli", args.seq, args.batch, "train")
-        pcfg = ParallelConfig(dp=args.data, tp=args.model, pp=1,
-                              microbatches=args.pp_micro)
+        pcfg = ParallelConfig(dp=args.data, tp=args.model, pp=pp,
+                              microbatches=args.pp_micro,
+                              pp_schedule=args.pp_schedule)
         plan = auto_plan(cfg, mesh, shape, pcfg)
         if args.remat != "auto":
             plan = dataclasses.replace(plan, remat=args.remat == "on")
@@ -133,32 +146,12 @@ def run(args: argparse.Namespace, tracer=None):
         n = sum(x.numel() for x in tree_leaves(params))
         if lead:
             print(f"{cfg.name}: {n/1e6:.1f}M params on mesh "
-                  f"data={args.data} model={args.model} stage=1; "
+                  f"data={args.data} model={args.model} stage={pp}; "
                   f"plan notes: {plan.notes}")
-
-        def batches(start):
-            for b in pipeline.synthetic_lm_batches(
-                    cfg.vocab_size, args.batch, args.seq,
-                    args.steps - start, seed=start):
-                yield {k: torch.from_numpy(v).to(device)
-                       for k, v in b.items()}
-
-        step, shardings_for = trainer.make_hybrid_train_step(
-            cfg, plan, tcfg, params_shape=params)
-        psh, osh, _ = shardings_for(params, next(iter(batches(0))))
-        state_sh = {"params": psh, "opt": osh}
-        shards = sharding.device_put(params, psh)
-        state = {"params": shards, "opt": trainer.init_hybrid_opt(
-            cfg, plan, shards, params)}
+        train = _pipelined if pipelined else _hybrid
+        box = [params]          # the path takes the only reference
         del params
-        start = 0
-        if args.resume:
-            start, state = trainer.resume_or_init(state, tcfg, state_sh)
-        res = trainer.train_loop(
-            state, batches(start), step, tcfg, start_step=start,
-            samples_per_batch=args.batch, verbose=lead,
-            log_every=max(args.steps // 10, 1), tracer=tracer,
-            shardings=state_sh)
+        res = train(args, cfg, mesh, plan, tcfg, box, device, tracer, lead)
         if lead:
             print(f"done: {res.steps_run} steps, host throughput "
                   f"{res.throughput:.1f} samples/s, final loss "
@@ -170,6 +163,92 @@ def run(args: argparse.Namespace, tracer=None):
         return res, plan
     finally:
         dist.destroy_process_group()
+
+
+def _batches(args, cfg, device, start):
+    from repro_torch.data import pipeline
+    for b in pipeline.synthetic_lm_batches(
+            cfg.vocab_size, args.batch, args.seq, args.steps - start,
+            seed=start):
+        yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _hybrid(args, cfg, mesh, plan, tcfg, box, device, tracer, lead):
+    """The GSPMD-hybrid path's port: TP x DP.  ``box`` holds the full
+    params, which the path takes out (so they can be freed)."""
+    from repro_torch.core import sharding
+    from repro_torch.runtime import trainer
+    params = box.pop()
+    step, shardings_for = trainer.make_hybrid_train_step(
+        cfg, plan, tcfg, params_shape=params)
+    psh, osh, _ = shardings_for(params,
+                                next(_batches(args, cfg, device, 0)))
+    state_sh = {"params": psh, "opt": osh}
+    shards = sharding.device_put(params, psh)
+    state = {"params": shards,
+             "opt": trainer.init_hybrid_opt(cfg, plan, shards, params)}
+    del params
+    start = 0
+    if args.resume:
+        start, state = trainer.resume_or_init(state, tcfg, state_sh)
+    return trainer.train_loop(
+        state, _batches(args, cfg, device, start), step, tcfg,
+        start_step=start, samples_per_batch=args.batch, verbose=lead,
+        log_every=max(args.steps // 10, 1), tracer=tracer,
+        shardings=state_sh)
+
+
+def _pipelined(args, cfg, mesh, plan, tcfg, box, device, tracer, lead):
+    """The pipelined DP x TP x stage path (``box`` as in :func:`_hybrid`).
+    The stage bodies take the model knobs the hybrid step sets itself:
+    attention in chunks of ``ModelCtx``'s default 1024 tokens and the
+    flash backward when there is no TP.  The error-feedback residual is
+    allocated for the compressed syncs only (the JAX launcher allocates
+    it for every mode; flat and hierarchical never read it)."""
+    from repro_torch.core import sharding
+    from repro_torch.models import transformer as tf
+    from repro_torch.optimizer import adamw
+    from repro_torch.runtime import trainer
+    bounds = list(plan.stage_bounds)
+    ctx = tf.ModelCtx(flash_vjp=args.model == 1)
+    scfg = trainer.DPSyncConfig(mode=args.grad_sync)
+    full = tf.pp_partition_params(cfg, box.pop(), bounds)
+    sh = trainer.pp_shardings(cfg, mesh, full, scfg)
+    n_res = (trainer.pp_residual_size(cfg, full, mesh, scfg)
+             if scfg.mode in ("onebit", "topk") else 0)
+    local = sharding.device_put(full, sh["params"])
+    del full
+    state = {"params": local,
+             "opt": adamw.init_opt_state(trainer.pp_trainable(
+                 local, cfg.tie_embeddings)),
+             "residual": torch.zeros((1, 1, 1, n_res), device=device),
+             "stage_bounds": torch.tensor(bounds, dtype=torch.int32,
+                                          device=device)}
+    start = 0
+    if args.resume:
+        start, state = trainer.resume_or_init(state, tcfg, sh)
+        # checkpoints restore by key (shapes come from disk): a run
+        # rebalanced mid-flight restores its moved carve points, and the
+        # step must be rebuilt at THOSE bounds, not the planner's
+        bounds = [int(b) for b in state["stage_bounds"]]
+    pp_shape = trainer.global_shapes(cfg, mesh, state["params"])
+    step = trainer.make_pp_train_step(
+        cfg, mesh, tcfg, bounds, pp_shape, n_micro=args.pp_micro,
+        pp_schedule=args.pp_schedule, scfg=scfg, ctx=ctx)
+    rebal = None
+    if args.pp_rebalance_every:
+        rebal = trainer.PPRebalancer(
+            cfg, mesh, tcfg, bounds, n_micro=args.pp_micro,
+            pp_schedule=args.pp_schedule, scfg=scfg, ctx=ctx, tracer=tracer)
+    res = trainer.train_loop(
+        state, _batches(args, cfg, device, start), step, tcfg,
+        start_step=start, samples_per_batch=args.batch, verbose=lead,
+        rebalance_every=args.pp_rebalance_every, rebalance_fn=rebal,
+        log_every=max(args.steps // 10, 1), tracer=tracer, shardings=sh)
+    if lead and rebal is not None and len(rebal.history) > 1:
+        print(f"stage bounds rebalanced {len(rebal.history) - 1}x: "
+              f"{rebal.history[0]} -> {rebal.history[-1]}")
+    return res
 
 
 def main(argv=None) -> int:

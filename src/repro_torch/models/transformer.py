@@ -24,6 +24,11 @@ sharding plan (:class:`repro_torch.core.sharding.TPHooks`), runs the
 forward and the loss under Megatron tensor parallelism, sequence
 parallelism and the global loss mean of the hybrid train step.
 
+The pipeline's stage functions (:func:`pp_partition_params`,
+:func:`make_stage_fn`, :func:`make_last_fn` and the slicing around them)
+cut the stacked layers at stage bounds for the pipelined train step
+(:mod:`repro_torch.core.pipeline`).
+
 The rwkv6 family (:mod:`repro_torch.models.ssm`) keeps per layer a
 (B, H, hs, hs) WKV state and two token-shift rows in ``cache["states"]``,
 written in place by the prefill and the decode step like the KV cache.
@@ -48,6 +53,7 @@ from repro_torch.cache_layout import CacheLayout
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, moe, ssm
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -574,3 +580,178 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
         h, cache = decode(cfg, params, h, cache["len"], ctx, cache)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return layers.lm_logits(cfg, params, h), cache
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stages (the pipelined train step, ``core/pipeline.py``)
+# ---------------------------------------------------------------------------
+# The stacked-layer (L, ...) blocks split at ``balance_stages`` bounds into
+# per-stage blocks with shape-uniform inter-stage activations.  Stages may
+# hold different layer counts, so every stage is padded to the widest
+# stage and carries a per-slot ``mask``: a masked slot is the identity
+# (``x + 0 * sublayer(x)``), with the pad slots holding copies of the
+# stage's last real layer so no degenerate-weight numerics ever run.
+# Embed and final-norm/head ride outside the stage stack as first/last
+# stage extras (``pp_partition_params`` -> {"stage", "last", ["embed"]}).
+
+def stage_slice_params(cfg: Optional[ArchConfig], blocks, bounds) -> Dict:
+    """Split stacked (L, ...) uniform blocks into {"blocks": (S, L_max,
+    ...), "mask": (S, L_max)} at ``bounds`` (len S+1, from
+    ``balance_stages``)."""
+    S = len(bounds) - 1
+    sizes = [bounds[s + 1] - bounds[s] for s in range(S)]
+    if min(sizes) < 1:
+        raise ValueError(f"empty stage in bounds {bounds}")
+    L_max = max(sizes)
+
+    def slice_one(a):
+        outs = []
+        for s in range(S):
+            sl = a[bounds[s]:bounds[s + 1]]
+            if sizes[s] < L_max:                  # pad with a real layer
+                pad = sl[-1:].expand((L_max - sizes[s],) + sl.shape[1:])
+                sl = torch.cat([sl, pad], dim=0)
+            outs.append(sl)
+        return torch.stack(outs)
+
+    mask = torch.tensor([[1.0] * n + [0.0] * (L_max - n) for n in sizes],
+                        dtype=torch.float32,
+                        device=tree_leaves(blocks)[0].device)
+    return {"blocks": tree_map(slice_one, blocks), "mask": mask}
+
+
+def unstack_stage_params(stage_params: Dict, bounds) -> Any:
+    """Inverse of :func:`stage_slice_params`: back to stacked (L, ...)."""
+    S = len(bounds) - 1
+    sizes = [bounds[s + 1] - bounds[s] for s in range(S)]
+    return tree_map(lambda a: torch.cat([a[s, :sizes[s]]
+                                         for s in range(S)]),
+                    stage_params["blocks"])
+
+
+def remap_stage_params(stage_params: Dict, old_bounds, new_bounds) -> Dict:
+    """Live stage remap: re-carve a padded stage stack under new layer
+    bounds (the observe->rebalance loop).  The model function is invariant
+    -- layer order is preserved, only the stage assignment (and pad width)
+    changes."""
+    blocks = unstack_stage_params(stage_params, old_bounds)
+    return stage_slice_params(None, blocks, new_bounds)
+
+
+def pp_partition_params(cfg: ArchConfig, params: Dict, bounds) -> Dict:
+    """Full-model params -> the pipeline-parallel partition.
+
+    Returns {"stage": stage-stacked blocks+mask, "last": final-norm + head
+    (the tied-embedding table lives here when ``cfg.tie_embeddings``),
+    "embed": input table (untied only)}."""
+    if family(cfg) != "uniform":
+        raise NotImplementedError(
+            f"pipeline stage slicing covers the uniform family; "
+            f"{cfg.name} is {family(cfg)}")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "pipelined training drops MoE aux losses; dense uniform only")
+    if cfg.pos_type == "mrope":
+        raise NotImplementedError(
+            "the pipelined path runs plain rope positions and a bare "
+            "token embedding; mrope archs (patch_embeds mixing, "
+            "3-component positions) are not stage-sliceable yet")
+    out = {"stage": stage_slice_params(cfg, params["blocks"], bounds),
+           "last": {"final_norm": params["final_norm"]}}
+    if cfg.tie_embeddings:
+        out["last"]["embed"] = params["embed"]
+    else:
+        out["last"]["lm_head"] = params["lm_head"]
+        out["embed"] = params["embed"]
+    return out
+
+
+def pp_merge_params(cfg: ArchConfig, pp_params: Dict, bounds) -> Dict:
+    """Inverse of :func:`pp_partition_params` (checkpoint/export)."""
+    params = {"blocks": unstack_stage_params(pp_params["stage"], bounds),
+              "final_norm": pp_params["last"]["final_norm"]}
+    if cfg.tie_embeddings:
+        params["embed"] = pp_params["last"]["embed"]
+    else:
+        params["lm_head"] = pp_params["last"]["lm_head"]
+        params["embed"] = pp_params["embed"]
+    return params
+
+
+def make_stage_fn(cfg: ArchConfig, ctx: ModelCtx = ModelCtx(), tp=None):
+    """stage_fn(stage_slice, x) for the pipeline schedules: a masked loop
+    over the stage's (padded) layers, ``h + m * branch``.  x: (mb, S, d)
+    residual stream; the slice's stacked leaves may also be lists of one
+    tensor a layer.
+
+    ``tp = (mesh, axis)`` makes this the Megatron-TP body: block params
+    hold this rank's head / d_ff column slices (``pp_stage_specs``); each
+    residual branch enters through Megatron's ``f`` (identity forward,
+    all-reduce backward) and exits through ``g`` (all-reduce forward,
+    identity backward).  Gradients of TP-sliced weights come out exact
+    and local; those of the replicated leaves inside a branch (the norms)
+    are per-rank partials the trainer sums over ``axis`` once.  Local head
+    counts are inferred from the sliced shapes, so one function serves any
+    tp degree.  ``ctx.remat`` recomputes each layer in the backward.
+    """
+    if tp is not None and tp[0].shape.get(tp[1], 1) > 1:
+        from repro_torch.core.sharding import _Copy, _Reduce
+        mesh, axis = tp
+
+        def f_in(x):
+            return _Copy.apply(x, mesh, (axis,))
+
+        def g_out(x):
+            return _Reduce.apply(x, mesh, (axis,))
+    else:
+        def f_in(x):
+            return x
+        g_out = f_in
+    base = dataclasses.replace(ctx, tp=None)
+
+    def stage_fn(p, x):
+        blocks = p["blocks"]
+        qd = blocks["attn"]["wq"][0].shape[-1]
+        kvd = blocks["attn"]["wk"][0].shape[-1]
+        cfg_l = dataclasses.replace(cfg, num_heads=qd // cfg.head_dim,
+                                    num_kv_heads=kvd // cfg.head_dim)
+        B, S_seq, _ = x.shape
+        positions = torch.arange(S_seq, device=x.device)[None].expand(
+            B, S_seq)
+
+        def layer(h, blk, m):
+            a_out, _ = attn_apply(cfg_l, blk["attn"], f_in(h), positions,
+                                  base)
+            h = h + m * g_out(a_out)
+            # the dense FFN spelled out (pp_partition_params rejects MoE)
+            hn = layers.apply_norm(cfg_l, blk["ffn"]["norm"], f_in(h))
+            f_out = layers.apply_mlp(cfg_l, blk["ffn"]["mlp"], hn)
+            return h + m * g_out(f_out)
+
+        h = x
+        for i in range(p["mask"].shape[0]):
+            blk = _layer(blocks, i)
+            m = p["mask"][i].to(x.dtype)        # the pad mask: no gradient
+            h = (checkpoint(layer, h, blk, m, use_reentrant=False)
+                 if ctx.remat else layer(h, blk, m))
+        return h
+
+    return stage_fn
+
+
+def make_stage_fn_tp(cfg: ArchConfig, ctx: ModelCtx = ModelCtx(), *, mesh,
+                     tp_axis: str = "model"):
+    """The Megatron-TP configuration of :func:`make_stage_fn`."""
+    return make_stage_fn(cfg, ctx, tp=(mesh, tp_axis))
+
+
+def make_last_fn(cfg: ArchConfig, ctx: ModelCtx = ModelCtx()):
+    """last_fn(last_params, y, tgt, mask) -> masked NLL *sum* over one
+    micro-batch (the pipeline divides by the global mask weight)."""
+
+    def last_fn(lp, y, tgt, mask):
+        h = layers.apply_norm(cfg, lp["final_norm"], y)
+        nll = layers._nll(layers.lm_logits(cfg, lp, h), tgt)
+        return torch.sum(nll * mask)
+
+    return last_fn

@@ -1,8 +1,7 @@
 """Unified observability: tracing spans, metrics registry, exporters (a
-copy of ``repro/obs``, plain Python).
-
-The pipeline timeline helpers of ``repro/obs/timeline.py`` serve only the
-pipelined training loop and are not ported yet (``ROADMAP.md``).
+copy of ``repro/obs``, plain Python).  ``obs.timeline`` (the pipeline's
+stage-time readout and tick synthesis) is imported on its own, as in the
+JAX package.
 """
 from repro_torch.obs.export import (chrome_trace, write_chrome_trace,
                                     write_jsonl, write_trace)

@@ -27,14 +27,23 @@ over the vocab dim).  Parameters are replicated, and so is the optimizer
 state outside those tables; the residual is this rank's flat
 ``(N_pad,)`` f32 error-feedback state (row ``r`` of JAX's ``(P, N_pad)``).
 
+``make_pp_train_step`` is the pipelined DP x TP x stage step: every rank
+holds its stage of the layer stack (cut at the planner's bounds) with its
+TP shards, runs the 1F1B or GPipe executor of ``core/pipeline.py`` over
+the ``stage`` axis with Megatron-TP stage bodies over ``model``, and
+syncs the gradients over ``data`` with the DP step's modes.
+``PPRebalancer`` closes the observe->rebalance loop in
+:func:`train_loop`: it times each stage's layers, re-carves the bounds
+and remaps params and AdamW moments.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-the pipelined step and the loop's rebalance hook; under the hybrid step,
-MoE (expert parallelism), the rwkv/mamba families, ``embed_plans`` and a
-``stage`` axis.
+under the hybrid step, MoE (expert parallelism), the rwkv/mamba families
+and ``embed_plans``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
@@ -43,13 +52,15 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.config import ArchConfig, TrainConfig
-from repro_torch.core import compression, hierarchical
+from repro_torch.core import compression, hierarchical, load_balance
+from repro_torch.core import pipeline as pipe_lib
 from repro_torch.core import sharding as sharding_lib
 from repro_torch.core.hierarchical import DPMesh
 from repro_torch.core.hybrid import Plan
 from repro_torch.embeddings import update as embed_update
-from repro_torch.models import transformer as tf
+from repro_torch.models import layers, transformer as tf
 from repro_torch.models.transformer import ModelCtx
+from repro_torch.obs import timeline as obs_timeline
 from repro_torch.obs.trace import Tracer, or_null
 from repro_torch.optimizer import adamw, schedule
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -472,6 +483,431 @@ def make_dp_train_step(loss_fn: Callable, mesh: DPMesh, tcfg: TrainConfig,
     return step
 
 
+# ---------------------------------------------------------------------------
+# Pipelined DP x TP x stage train step (planner stage bounds -> 1F1B/GPipe
+# schedule -> manual Megatron TP -> composed DP gradient sync)
+# ---------------------------------------------------------------------------
+
+
+def pp_trainable(pp_params, tied: bool):
+    """The optimizer's view of the pipeline param tree (drops the pad
+    mask, which is layout metadata, not a weight)."""
+    t = {"stage": {"blocks": pp_params["stage"]["blocks"]},
+         "last": pp_params["last"]}
+    if not tied:
+        t["embed"] = pp_params["embed"]
+    return t
+
+
+def pp_residual_size(cfg: ArchConfig, pp_params_shape, mesh: DPMesh,
+                     scfg: DPSyncConfig,
+                     embed_sync: Optional[EmbedSyncConfig] = None) -> int:
+    """Flat padded size of one rank's compression residual under the
+    pipelined step: stage blocks count their LOCAL shard (1/S stages,
+    1/tp of each TP-sliced dim), replicated extras count in full, and
+    sparse-synced embedding tables are excluded (as in
+    :func:`residual_size`).  ``pp_params_shape``: the full pipeline tree,
+    or anything with its leaves' ``.shape``."""
+    S = mesh.shape["stage"]
+    tp = mesh.shape.get("model", 1)
+    specs = sharding_lib.pp_stage_specs(
+        cfg, pp_params_shape["stage"], mesh)["blocks"]
+    n = 0
+    for leaf, sp in zip(tree_leaves(pp_params_shape["stage"]["blocks"]),
+                        tree_leaves(specs)):
+        n += math.prod(leaf.shape) // S // (
+            tp if sharding_lib.spec_has_axis(sp, "model") else 1)
+    exclude = tuple(embed_sync.id_fns) if embed_sync else ()
+    for key in ("last", "embed"):
+        if key in pp_params_shape and key not in exclude:
+            n += sum(math.prod(x.shape)
+                     for x in tree_leaves(pp_params_shape[key]))
+    mult = 8 * scfg.block if scfg.mode == "onebit" else scfg.topk_block
+    return n + ((-n) % mult)
+
+
+def pp_shardings(cfg: ArchConfig, mesh: DPMesh, pp_params_shape,
+                 scfg: DPSyncConfig = DPSyncConfig()):
+    """``NamedSharding`` trees of the pipelined state: ``params`` (the
+    stage stack by :func:`~repro_torch.core.sharding.pp_stage_specs`, the
+    extras replicated), ``opt`` (m, v, master as the trainable params),
+    ``residual`` (the full ``(dp, tp, S, n)`` array of every rank's flat
+    residual, JAX's layout) and ``stage_bounds`` (replicated).  Cut a full
+    state with ``sharding.device_put``; :func:`train_loop` gathers it back
+    for a checkpoint."""
+    named = lambda spec: sharding_lib.NamedSharding(mesh, spec)  # noqa: E731
+    rep = named(())
+    stage = tree_map(named, sharding_lib.pp_stage_specs(
+        cfg, pp_params_shape["stage"], mesh))
+    params = {"stage": stage,
+              "last": tree_map(lambda _: rep, pp_params_shape["last"])}
+    if "embed" in pp_params_shape:
+        params["embed"] = rep
+    tr = pp_trainable(params, "embed" not in pp_params_shape)
+    return {"params": params,
+            "opt": {"m": tr, "v": tr, "master": tr, "step": rep},
+            "residual": named(sharding_lib.P(scfg.intra_axis, "model",
+                                             "stage", None)),
+            "stage_bounds": rep}
+
+
+def make_pp_train_step(cfg: ArchConfig, mesh: DPMesh, tcfg: TrainConfig,
+                       bounds, pp_params_shape, n_micro: int = 4,
+                       pp_schedule: str = "1f1b",
+                       scfg: DPSyncConfig = DPSyncConfig(),
+                       embed_sync: Optional[EmbedSyncConfig] = None,
+                       ctx: Optional[ModelCtx] = None):
+    """The DP x TP x stage pipelined train step on this rank.
+
+    step(pp_params, opt, residual, batch) -> (pp_params, opt, residual,
+    loss).  ``pp_params`` is this rank's cut (:func:`pp_shardings`) of
+    :func:`transformer.pp_partition_params` at ``bounds``: its stage of
+    the stack, leading dim 1, with its TP shards, and the replicated
+    extras; ``opt`` is ``adamw.init_opt_state`` of its
+    :func:`pp_trainable` view, updated in place with the params;
+    ``residual`` is its ``(1, 1, 1, pp_residual_size)`` block; ``batch``
+    the global batch, of which the step takes this rank's rows over
+    ``scfg.intra_axis``.  ``loss`` is the mean over that axis.
+    ``pp_params_shape`` is the full pipeline tree (or its shapes).
+
+    Inside: the token embedding runs replicated (its gradient arrives
+    through the pipeline's input cotangent), micro-batches pad a
+    remainder batch with masked rows, the executor
+    (:func:`repro_torch.core.pipeline.make_pipeline_vag_body`) drives the
+    stage axis with Megatron-TP stage bodies over ``model``, TP-partial
+    gradients (the replicated norm leaves) are summed over ``model`` once,
+    and the DP sync stack -- flat / hierarchical / onebit / topk plus the
+    rows-touched :class:`EmbedSyncConfig` path -- runs across ``data`` as
+    in :func:`make_dp_train_step`; the clip takes the global norm with
+    shard-aware accounting.
+    """
+    S = mesh.shape["stage"]
+    tp = mesh.shape.get("model", 1)
+    if len(bounds) - 1 != S:
+        raise ValueError(f"bounds {bounds} vs stage axis {S}")
+    if tp > 1 and cfg.num_heads % tp:
+        raise ValueError(f"num_heads {cfg.num_heads} must divide tp {tp}")
+    if tp > 1 and cfg.num_kv_heads % tp and \
+            (cfg.num_heads // tp) % cfg.num_kv_heads:
+        # kv falls back to replication when it doesn't divide; the GQA
+        # grouping then needs local q heads divisible by the FULL kv count
+        raise ValueError(
+            f"tp {tp} leaves {cfg.num_heads // tp} local q heads over "
+            f"{cfg.num_kv_heads} replicated kv heads -- GQA grouping is "
+            f"unexpressible; pick tp with num_kv_heads % tp == 0 or "
+            f"(num_heads/tp) % num_kv_heads == 0")
+    tied = cfg.tie_embeddings
+    if embed_sync is not None and tied:
+        raise NotImplementedError(
+            "sparse embed sync under pp needs an untied embedding (the "
+            "tied table also carries the dense lm-head gradient)")
+    ctx = ctx if ctx is not None else ModelCtx(attn_chunk=8)
+    stage_fn = tf.make_stage_fn_tp(cfg, ctx, mesh=mesh)
+    last_fn = tf.make_last_fn(cfg, ctx)
+    vag_body = pipe_lib.make_pipeline_vag_body(
+        stage_fn, last_fn, S, n_micro, pp_schedule, mesh=mesh)
+    stage_specs = sharding_lib.pp_stage_specs(cfg, pp_params_shape["stage"],
+                                              mesh)
+    has_model = tree_map(lambda sp: sharding_lib.spec_has_axis(sp, "model"),
+                         stage_specs["blocks"])
+    axes = (scfg.intra_axis,)
+    world, shard = mesh.size(axes), mesh.shard_index(axes)
+    compressed = scfg.mode in ("onebit", "topk")
+    if compressed:
+        csync = compression.make_compressed_sync(
+            scfg.mode, mesh=mesh, axis=scfg.intra_axis,
+            block=scfg.block if scfg.mode == "onebit" else scfg.topk_block,
+            k=scfg.k, use_kernel=scfg.use_kernel)
+    else:
+        gsync = hierarchical.make_sync_fn(scfg.mode, mesh, scfg.intra_axis,
+                                          scfg.inter_axis)
+    row_compress = None
+    if embed_sync is not None and embed_sync.compress:
+        row_compress = embed_update.make_row_compressor(
+            embed_sync.compress, embed_sync.k, embed_sync.use_kernel)
+    tcfg_noclip = dataclasses.replace(tcfg, grad_clip=0.0)
+
+    def clip_scale(g):
+        """Global-norm clip scale with shard-aware accounting: stage
+        blocks sum disjoint shards over (model, stage) -- replicated
+        leaves (already summed over model) weighted 1/tp first -- while
+        the everywhere-replicated extras count once locally."""
+        sq = torch.zeros((), dtype=torch.float32,
+                         device=tree_leaves(g)[0].device)
+        for leaf, hm in zip(tree_leaves(g["stage"]["blocks"]),
+                            tree_leaves(has_model)):
+            sq = sq + torch.sum(torch.square(leaf)) / (1.0 if hm else tp)
+        sq = hierarchical.all_reduce_sum(sq, mesh, ("model", "stage"))
+        for key in ("last", "embed"):
+            if key in g:
+                sq = sq + sum(torch.sum(torch.square(x))
+                              for x in tree_leaves(g[key]))
+        norm = torch.sqrt(sq)
+        if tcfg.grad_clip <= 0:
+            return torch.ones_like(norm), norm
+        return torch.clamp(tcfg.grad_clip / torch.clamp(norm, min=1e-9),
+                           max=1.0), norm
+
+    def local_batch(batch):
+        return {k: v[shard * (v.shape[0] // world):
+                     (shard + 1) * (v.shape[0] // world)]
+                for k, v in batch.items()}
+
+    def step(params, opt, residual, batch):
+        batch = local_batch(batch)
+        tokens, targets = batch["tokens"], batch["targets"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(tokens.shape, dtype=torch.float32,
+                              device=tokens.device)
+        emb = (params["last"]["embed"] if tied
+               else params["embed"]).detach().requires_grad_()
+        h = layers.embed_tokens(emb, tokens)
+        loss, g_stage, g_last, g_x = vag_body(
+            params["stage"], params["last"],
+            pipe_lib.microbatch(h.detach(), n_micro, pad=True),
+            pipe_lib.microbatch(targets, n_micro, pad=True),
+            pipe_lib.microbatch(mask.to(torch.float32), n_micro, pad=True))
+        # embed grad via the pipeline's input cotangent (pad rows sliced)
+        g_h = g_x.reshape((-1,) + tuple(g_x.shape[2:]))[:tokens.shape[0]]
+        (g_emb,) = torch.autograd.grad(h, emb, g_h.to(h.dtype))
+        with torch.no_grad():
+            loss = hierarchical.all_reduce_sum(loss, mesh, axes) / world
+            # TP: replicated-leaf grads are per-rank partials -> sum once
+            g_blocks = tree_map(
+                lambda gl, hm: gl if hm else hierarchical.all_reduce_sum(
+                    gl, mesh, ("model",)), g_stage["blocks"], has_model)
+            grads = {"stage": {"blocks": g_blocks}, "last": dict(g_last)}
+            if tied:
+                grads["last"]["embed"] = grads["last"]["embed"] \
+                    + g_emb.to(torch.float32)
+            else:
+                grads["embed"] = g_emb.to(torch.float32)
+            # DP sync across `data`: sparse rows-touched tables first, then
+            # the dense/compressed path over the rest
+            emb_grads = {}
+            if embed_sync is not None:
+                for key, id_fn in embed_sync.id_fns.items():
+                    emb_grads[key] = embed_update.sparse_row_sync(
+                        grads[key], id_fn(batch), mesh, axes,
+                        cap=embed_sync.cap, compress=row_compress,
+                        use_kernel=embed_sync.use_kernel)
+                grads = {k: v for k, v in grads.items()
+                         if k not in emb_grads}
+            if compressed:
+                grads, new_res = csync(grads, residual[0, 0, 0])
+                if scfg.inter_axis:
+                    grads = tree_map(
+                        lambda g: hierarchical.flat_allreduce_mean(
+                            g, mesh, (scfg.inter_axis,)), grads)
+                new_res = new_res[None, None, None]
+            else:
+                if mesh.size(_dp_axes(scfg)) > 1:   # a mean over one: g
+                    grads = gsync(grads)
+                new_res = residual
+            grads = {**grads, **emb_grads}
+            scale, _ = clip_scale(grads)
+            lr = schedule.warmup_cosine(opt["step"], tcfg.learning_rate,
+                                        tcfg.warmup_steps, tcfg.steps)
+            _, new_opt = adamw.adamw_apply(
+                pp_trainable(params, tied), grads, opt, lr, tcfg_noclip,
+                donate=True, grad_scale=scale)
+        return params, new_opt, new_res, loss
+
+    return step
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def probe_stage_times(cfg: ArchConfig, pp_params, bounds, ctx=None,
+                      batch: int = 2, seq: int = 16, iters: int = 3,
+                      jit_cache: Optional[Dict] = None,
+                      tracer: Optional[Tracer] = None):
+    """Measured per-stage forward times over each stage's REAL (unpadded)
+    layers -- the observe half of the observe->rebalance loop.
+
+    ``pp_params["stage"]`` holds every stage's (padded) blocks, (S, L_max,
+    ...).  The executor runs every stage at the widest stage's layer
+    count (masked identity slots), so its own tick times cannot see
+    imbalance; the probe times each stage's true layer slice, on the
+    params' device, the device synchronised around each timed call.
+    Returns per-stage median seconds over ``iters`` timed calls.
+
+    ``jit_cache`` (a dict the caller keeps alive): holds the stage
+    function across probes, as JAX's holds its jitted program.
+
+    ``tracer``: every timed call lands as one ``stage_tick`` span on track
+    ``stage{s}`` (args ``stage``/``phase``/``iter``) with the exact
+    measured duration the returned medians reduce over, so
+    :func:`repro_torch.obs.timeline.stage_tick_times` recovers the same
+    per-stage times from the timeline.
+    """
+    tracer = or_null(tracer)
+    ctx = ctx if ctx is not None else ModelCtx(attn_chunk=8)
+    bounds = list(bounds)
+    blocks = tf.unstack_stage_params(pp_params["stage"], bounds)
+    if jit_cache is not None and "fn" in jit_cache:
+        fn = jit_cache["fn"]
+    else:
+        fn = tf.make_stage_fn(cfg, ctx)
+        if jit_cache is not None:
+            jit_cache["fn"] = fn
+    leaf = tree_leaves(blocks)[0]
+    x = torch.zeros((batch, seq, cfg.d_model), dtype=leaf.dtype,
+                    device=leaf.device)
+    times = []
+    with torch.no_grad():
+        for s in range(len(bounds) - 1):
+            n = bounds[s + 1] - bounds[s]
+            sl = tree_map(lambda a: a[bounds[s]:bounds[s + 1]], blocks)
+            p = {"blocks": sl, "mask": torch.ones((n,), dtype=torch.float32,
+                                                  device=leaf.device)}
+            fn(p, x)                                       # warm
+            samples = []
+            for it in range(iters):
+                _sync(leaf.device)
+                t0 = time.perf_counter()
+                fn(p, x)
+                _sync(leaf.device)
+                t1 = time.perf_counter()
+                samples.append(t1 - t0)
+                tracer.complete("stage_tick", t0, t1, track=f"stage{s}",
+                                stage=s, phase="fwd", iter=it)
+            samples.sort()
+            times.append(samples[len(samples) // 2])
+    return times
+
+
+def global_shapes(cfg: ArchConfig, mesh: DPMesh, pp_params):
+    """The full pipeline tree's shapes (``meta`` tensors) from this rank's
+    cut of it."""
+    sh = pp_shardings(cfg, mesh, pp_params)["params"]
+
+    def full(x, s):
+        shape = list(x.shape)
+        for i, e in enumerate(tuple(s.spec)):
+            shape[i] *= mesh.size(sharding_lib._axes(e))
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+    return tree_map(full, pp_params, sh)
+
+
+class PPRebalancer:
+    """Rebalance-in-the-loop for the pipelined train step.
+
+    Every invocation (``train_loop`` calls it every ``rebalance_every``
+    steps): probe per-stage times at the current bounds, re-carve the
+    layer->stage partition with :func:`load_balance.rebalance_stages`,
+    and -- when the carve points move -- live-remap the stage params *and*
+    their AdamW moments with :func:`transformer.remap_stage_params`
+    semantics, then rebuild the step for the new bounds.  The model
+    function is invariant under the remap (layer order never changes);
+    only the stage assignment, pad width and per-stage cost change.  A
+    compressed-sync residual is re-zeroed (error feedback restarts warm).
+
+    On a world: each rank gathers its stage stack over the ``stage`` axis
+    (its TP shards: the probe then times 1/tp of every stage's work, the
+    local head counts read from the shapes), rank 0's stage times are
+    broadcast so every rank takes the same bounds, and each rank keeps
+    its stage of the remapped stack.
+    """
+
+    def __init__(self, cfg: ArchConfig, mesh: DPMesh, tcfg: TrainConfig,
+                 bounds, n_micro: int = 4, pp_schedule: str = "1f1b",
+                 scfg: DPSyncConfig = DPSyncConfig(), ctx=None,
+                 probe_batch: int = 2, probe_seq: int = 16,
+                 tracer: Optional[Tracer] = None):
+        self.cfg, self.mesh, self.tcfg = cfg, mesh, tcfg
+        self.bounds = list(bounds)
+        self.n_micro, self.pp_schedule, self.scfg = n_micro, pp_schedule, scfg
+        self.ctx = ctx
+        self.probe_batch, self.probe_seq = probe_batch, probe_seq
+        self.history = [list(bounds)]
+        self.last_stage_times = None
+        self._probe_cache: Dict = {}    # one stage function across probes
+        self.tracer = or_null(tracer)
+
+    def _whole(self, tree):
+        """Every stage's blocks: ``tree``'s leaves gathered over stage."""
+        return tree_map(lambda a: hierarchical.gather_dim(
+            a, self.mesh, ("stage",), 0), tree)
+
+    def _mine(self, tree):
+        s = self.mesh.coords["stage"]
+        return tree_map(lambda a: a[s:s + 1].clone(), tree)
+
+    def _times(self, stage):
+        n_stages = len(self.bounds) - 1
+        if self.tracer.enabled:
+            # the rebalancer reads the timeline: the probe's stage_tick
+            # spans go into a probe-local tracer, the loop's trace
+            # absorbs them, and the stage times come back out of them
+            probe_tr = Tracer(capacity=4096)
+            probe_stage_times(self.cfg, {"stage": stage}, self.bounds,
+                              self.ctx, self.probe_batch, self.probe_seq,
+                              jit_cache=self._probe_cache, tracer=probe_tr)
+            self.tracer.extend(probe_tr.events)
+            times = obs_timeline.stage_tick_times(probe_tr.events, n_stages)
+        else:
+            times = probe_stage_times(self.cfg, {"stage": stage},
+                                      self.bounds, self.ctx,
+                                      self.probe_batch, self.probe_seq,
+                                      jit_cache=self._probe_cache)
+        t = torch.tensor([float(x) for x in times], dtype=torch.float64)
+        if dist.get_world_size() > 1:           # one decision for all
+            dist.broadcast(t, src=0)
+        return [float(x) for x in t]
+
+    def __call__(self, state, step_fn):
+        stage = self._whole(state["params"]["stage"])
+        times = self._times(stage)
+        self.last_stage_times = times
+        new_bounds = load_balance.rebalance_stages(times, self.bounds)
+        self.tracer.instant(
+            "rebalance.decision", track="train",
+            old_bounds=list(self.bounds), new_bounds=list(new_bounds),
+            stage_times=[float(t) for t in times],
+            changed=new_bounds != self.bounds)
+        if new_bounds == self.bounds:
+            return None
+        params = dict(state["params"])
+        params["stage"] = self._mine(tf.remap_stage_params(
+            stage, self.bounds, new_bounds))
+        del stage
+        opt = dict(state["opt"])
+        for key in ("m", "v", "master"):
+            if key in opt and "stage" in opt[key]:
+                whole = self._whole(opt[key]["stage"]["blocks"])
+                opt[key] = {**opt[key], "stage": {"blocks": self._mine(
+                    tf.remap_stage_params({"blocks": whole}, self.bounds,
+                                          new_bounds)["blocks"])}}
+        device = state["opt"]["step"].device
+        new_state = {**state, "params": params, "opt": opt,
+                     "stage_bounds": torch.tensor(new_bounds,
+                                                  dtype=torch.int32,
+                                                  device=device)}
+        pp_shape = global_shapes(self.cfg, self.mesh, params)
+        if "residual" in state and state["residual"].shape[-1]:
+            # always restart error feedback: even at an unchanged flat
+            # size, moving the carve point re-aligns residual entries to
+            # different layers' gradients
+            n_res = pp_residual_size(self.cfg, pp_shape, self.mesh,
+                                     self.scfg)
+            new_state["residual"] = torch.zeros(
+                tuple(state["residual"].shape[:-1]) + (n_res,),
+                dtype=state["residual"].dtype,
+                device=state["residual"].device)
+        new_step = make_pp_train_step(
+            self.cfg, self.mesh, self.tcfg, new_bounds, pp_shape,
+            n_micro=self.n_micro, pp_schedule=self.pp_schedule,
+            scfg=self.scfg, ctx=self.ctx)
+        self.bounds = new_bounds
+        self.history.append(list(new_bounds))
+        return new_state, new_step
+
+
 def make_update_rule(tcfg: TrainConfig):
     """The trainer's optimizer plumbing (AdamW + warmup-cosine LR) as
     (init, apply): ``init(params) -> opt``; ``apply(params, opt, grads,
@@ -519,20 +955,32 @@ def train_loop(state: Dict[str, Any], batches: Iterator, step_fn: Callable,
     ``fail_at``: inject a simulated node failure (raises RuntimeError) after
     that step commits; the fault-tolerance tests restart from checkpoint.
 
+    ``rebalance_every`` / ``rebalance_fn``: close the observe->rebalance
+    loop in training.  Every K committed steps the loop calls
+    ``rebalance_fn(state, step_fn)``; a ``None`` return keeps the current
+    partition, otherwise the returned ``(state, step_fn)`` -- e.g. from
+    :class:`PPRebalancer`, which re-carves the pipeline's layer->stage
+    bounds from measured per-stage times -- replaces both for the steps
+    that follow.  A state's ``stage_bounds`` ride in its checkpoints.
+
     ``tracer``: per-step ``train_step`` spans (host wall clock, args
-    ``step``/``loss``) and ``checkpoint`` spans, as the JAX loop's.  The
-    rebalance hook (``rebalance_every``/``rebalance_fn``) serves the
-    pipelined step, which is not ported yet: it raises."""
-    if rebalance_every and rebalance_fn is not None:
-        raise NotImplementedError(
-            "the rebalance hook serves the pipelined step, which is not "
-            "ported yet (ROADMAP.md)")
+    ``step``/``loss``), ``rebalance.probe`` spans around each rebalance
+    hook, and ``checkpoint`` spans, as the JAX loop's."""
     tr = or_null(tracer)
     losses = []
     t0 = time.perf_counter()
     step = start_step
     n = 0
     for batch in batches:
+        if rebalance_every and rebalance_fn is not None and n > 0 \
+                and n % rebalance_every == 0:
+            with tr.span("rebalance.probe", track="train", step=step):
+                new = rebalance_fn(state, step_fn)
+            if new is not None:
+                state, step_fn = new
+                if verbose:
+                    print(f"step {step}: rebalanced "
+                          f"(bounds {getattr(rebalance_fn, 'bounds', '?')})")
         with tr.span("train_step", track="train", step=step) as sp:
             if "residual" in state:
                 state["params"], state["opt"], state["residual"], loss = \
@@ -551,8 +999,8 @@ def train_loop(state: Dict[str, Any], batches: Iterator, step_fn: Callable,
             print(f"step {step}: loss {losses[-1]:.4f}")
         if tcfg.checkpoint_every and step % tcfg.checkpoint_every == 0:
             with tr.span("checkpoint", track="train", step=step):
-                keys = [k for k in ("params", "opt", "residual")
-                        if k in state]
+                keys = [k for k in ("params", "opt", "residual",
+                                    "stage_bounds") if k in state]
                 ckpt.save(tcfg.checkpoint_dir, step,
                           {k: state[k] for k in keys},
                           keep=tcfg.keep_checkpoints,

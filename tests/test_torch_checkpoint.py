@@ -14,9 +14,9 @@
   hybrid step on reduced olmo-1b, a world of one), and its
   ``train_step``/``checkpoint`` events equal JAX's under a ``ManualClock``.
 * The launchers: ``repro_torch.launch.train`` ends with the JAX
-  launcher's ``done:`` line and refuses the pipelined path naming
-  ROADMAP.md; ``launch/train_recsys.py`` resumes a run killed after a
-  checkpoint.
+  launcher's ``done:`` line, takes the pipelined flags and refuses only
+  ``--host-devices``; ``launch/train_recsys.py`` resumes a run killed
+  after a checkpoint.
 """
 import dataclasses
 import functools
@@ -337,13 +337,30 @@ def test_train_launcher_ends_with_the_done_line(tmp_path):
                                   ("--grad-sync", "onebit"),
                                   ("--host-devices", "8")])
 def test_train_launcher_refuses_the_pipelined_path(flag):
+    """Only ``--host-devices`` (JAX's host-platform setting) is refused;
+    the pipelined flags are accepted since the pipelined path is ported:
+    ``--pp-stages 2`` takes it (on a world of two: ``test_torch_pp.py``),
+    and ``--grad-sync``, which serves only it, leaves a one-stage run on
+    the hybrid path, as JAX's launcher does."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit) as e:
-        train.parse_args(["--device", "cpu", *flag])
-    assert e.value.code != 0
-    if flag[0] != "--host-devices":
+    if flag[0] == "--host-devices":
+        with pytest.raises(SystemExit) as e:
+            train.parse_args(["--device", "cpu", *flag])
+        assert e.value.code != 0
+        return
+    args = train.parse_args(["--device", "cpu", *flag])
+    assert str(getattr(args, flag[0][2:].replace("-", "_"))) == flag[1]
+    if flag[0] == "--grad-sync":
+        out = _launch("repro_torch.launch.train", "--device", "cpu", "--arch",
+                      "olmo-1b", "--reduced", "--steps", "2", "--batch", "8",
+                      "--seq", "16", *flag)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert out.stdout.splitlines()[0].endswith("stage=1; plan notes: ()")
+    else:
         out = _launch("repro_torch.launch.train", "--device", "cpu", *flag)
-        assert out.returncode != 0 and "ROADMAP.md" in out.stderr
+        # a world of one cannot hold two stages: the mesh says so
+        assert out.returncode != 0 and "does not cover the world" in \
+            out.stderr
 
 
 def test_train_recsys_resumes_a_killed_run(tmp_path, monkeypatch, capsys):

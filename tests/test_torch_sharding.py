@@ -4,7 +4,9 @@ subprocess): ``param_specs``, ``opt_specs`` (ZeRO-1's ``zero1_spec``),
 ``dp_heavy``, ``seq_shard``, ``grad_sync`` and notes, compared as tuples
 at full width for olmo-1b, recllm-base, deepseek-7b, internlm2-20b,
 qwen3-moe-30b-a3b and rwkv6-1.6b on ``(data, model)`` meshes (1, 1),
-(2, 2), (4, 2), (1, 4) and the ``(pod, data, model)`` mesh (2, 2, 2).
+(2, 2), (4, 2), (1, 4) and the ``(pod, data, model)`` mesh (2, 2, 2); and
+the stage bounds and notes ``auto_plan`` gives a ``(data, model, stage)``
+mesh under both pipeline schedules.
 
 JAX gets a stand-in mesh (``shape``, ``axis_names``, ``size``): its rules
 read nothing else.  The port gets a ``DPMesh`` with no process groups.
@@ -191,14 +193,34 @@ def test_internlm2_train_4k_on_2x2_is_dp_heavy():
 
 def test_refusals_name_the_roadmap():
     from repro_torch import config
-    from repro_torch.core import hybrid, sharding
-    from repro_torch.core.hierarchical import DPMesh
-    mesh = DPMesh(shape={"data": 1, "model": 1, "stage": 2},
-                  coords={"data": 0, "model": 0, "stage": 0}, groups={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hybrid.auto_plan(config.get_arch("olmo-1b"), mesh,
-                         config.SHAPES["train_4k"])
+    from repro_torch.core import sharding
     _, tm = _meshes({"data": 1, "model": 1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sharding.make_plan(tm, config.ParallelConfig(),
                            embed_plans={"cf_user": object()})
+
+
+@pytest.mark.parametrize("stages", [1, 2, 4])
+@pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-7b", "internlm2-20b"])
+def test_auto_plan_stage_bounds_match_jax(arch, stages):
+    """A ``stage`` axis: ``balance_stages`` over the layers' FLOPs gives
+    JAX's bounds, and the notes (bounds, the schedule's bubble) are
+    JAX's, under both schedules."""
+    from repro import config as jconfig
+    from repro.core import hybrid as jhy
+    from repro_torch import config as tconfig
+    from repro_torch.core import hybrid as thy
+    jm, tm = _meshes({"data": 2, "model": 1, "stage": stages})
+    for sched in ("1f1b", "gpipe"):
+        jp = jhy.auto_plan(jconfig.get_arch(arch), jm,
+                           jconfig.SHAPES["train_4k"],
+                           jconfig.ParallelConfig(microbatches=4,
+                                                  pp_schedule=sched))
+        tp = thy.auto_plan(tconfig.get_arch(arch), tm,
+                           tconfig.SHAPES["train_4k"],
+                           tconfig.ParallelConfig(microbatches=4,
+                                                  pp_schedule=sched))
+        assert tp.stage_bounds == jp.stage_bounds
+        assert len(tp.stage_bounds) == stages + 1
+        assert _plan_fields(tp, drop_remat_note=True) == _plan_fields(
+            jp, drop_remat_note=True), tp.notes
