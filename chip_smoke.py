@@ -1354,7 +1354,7 @@ def phase_cf_serving(torch, card):
     from repro_torch import convert
     from repro_torch.config import get_arch
     from repro_torch.embeddings import (CacheConfig, CachedLookup, EmbedSpec,
-                                        init_table)
+                                        init_table, make_plan)
     from repro_torch.models import transformer as tf
     from repro_torch.obs import MetricsRegistry, Tracer, write_trace
     from repro_torch.serving import (CFConfig, CFHead, Clock, EngineConfig,
@@ -1419,7 +1419,8 @@ def phase_cf_serving(torch, card):
         CPU lookups of the same tables and cache: an independent count of
         the device gathers the cached head must have made."""
         cache = CacheConfig(rows=CF_CACHE_ROWS)
-        lk = {n: CachedLookup(EmbedSpec(n, *t.shape), "replicated", t,
+        plan = make_plan("replicated")
+        lk = {n: CachedLookup(EmbedSpec(n, *t.shape), plan, t,
                               device="cpu", cache=cache)
               for n, t in (("cf_user", user_np), ("cf_item", item_np))}
         by_rid = {r.rid: r for r in requests}
@@ -3838,6 +3839,284 @@ def phase_pipelined_training(torch, card, hybrid):
     return report
 
 
+# -- the sharded CF tables ---------------------------------------------------
+
+SHARDED_PLANS = ("row", "col", "row_col")
+# ids a lookup: a request's user + candidates, a training batch's users,
+# and a batch of many requests' candidates
+SHARDED_IDS = (1 + CF_CANDIDATES, TRAIN_BATCH, 4096)
+SHARDED_GRAD_ATOL = 1e-6
+SHARDED_CF_ROUNDS = 2     # unpinned serve runs of each plan, in turns
+SHARDED_REC_RTOL = 1e-6
+
+
+def phase_sharded_cf(torch, card):
+    """The sharded CF-table plans (row, col, row_col) on a one-rank NCCL
+    world, the mesh ``(data 1, model 1)``: (a) every plan's lookup
+    (``embeddings.make_sharded_lookup``) on the card at two sizes, the
+    launcher head's tables (10,000 x 16 users, RecLLM-base's vocab x 16
+    items) and RecLLM-base's full-width training tables (cf_dim 64): under
+    ``no_grad`` through the ``gather_rows`` kernel (one launch a lookup)
+    bit-equal to ``table[ids]``, with grad bit-equal too and its gradient
+    within 1e-6 of the replicated gather's; (b) the launcher's CF head on
+    RecLLM-base (bf16, 16 requests x 16 candidates) under each plan and
+    the replicated plan: pinned-clock greedy streams, cf / fused /
+    ranking and every kernel's launches equal to the replicated head's;
+    unpinned ``cf.lookup`` p50 of each; ``gather_rows`` device ms a call
+    on the row-sharded path (profiler); (c) RecLLM-base at full width
+    (float32) through the hybrid step with ``embed_plans("row")`` and
+    ``("row_col")`` against the replicated plan on the same 5 batches:
+    losses within 1e-6 relative (bit-equality printed)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.config import (ParallelConfig, ShapeConfig,
+                                    TrainConfig, get_arch)
+    from repro_torch.core import hierarchical
+    from repro_torch.core.hybrid import auto_plan
+    from repro_torch.embeddings import (EmbedSpec, init_table, make_plan,
+                                        make_sharded_lookup,
+                                        named_sharding)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import ModelCtx
+    from repro_torch.obs import Tracer
+    from repro_torch.recsys import model as recmodel
+    from repro_torch.runtime import trainer
+    from repro_torch.serving import (CFConfig, CFHead, Clock, EngineConfig,
+                                     ServingEngine, TrafficConfig, generate,
+                                     make_backend)
+    dev = torch.device("cuda")
+    report = {"card": card}
+    hierarchical.init_world_of_one(dev)
+    deterministic(torch, True)  # (a) and (c): duplicates summed in order
+    try:
+        mesh = make_host_mesh()
+        # -- (a) every plan's lookup on the card ---------------------------
+        cfg = get_arch("recllm-base")
+        tcfg_model, n_users = train_config()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        tables = {
+            "head": {n: init_table(gen, EmbedSpec(n, rows, CF_DIM), dev)
+                     for n, rows in (("cf_user", CF_USERS),
+                                     ("cf_item", cfg.vocab_size))},
+            "recllm": {n: init_table(gen, EmbedSpec(n, rows, 64), dev)
+                       for n, rows in (("cf_user", n_users),
+                                       ("cf_item",
+                                        tcfg_model.padded_vocab))}}
+        lookups = {}
+        for size, tabs in tables.items():
+            for name, t in tabs.items():
+                spec = EmbedSpec(name, *t.shape)
+                for n in SHARDED_IDS:
+                    ids = torch.randint(0, t.shape[0], (n,), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                    want = t[ids.long()]
+                    tgt = torch.randn(want.shape, generator=gen, device=dev)
+                    t0 = t.clone().requires_grad_()
+                    (g_want,) = torch.autograd.grad(
+                        0.5 * torch.sum((t0[ids.long()] - tgt) ** 2), t0)
+                    for kind in ("replicated",) + SHARDED_PLANS:
+                        plan = make_plan(kind)
+                        shard = named_sharding(mesh, plan).shard(t)
+                        lk = make_sharded_lookup(mesh, spec, plan,
+                                                 use_kernel=True)
+                        reset_launches()
+                        with torch.no_grad():
+                            out = lk(shard, ids)
+                        torch.cuda.synchronize()
+                        launched = read_launches()["gather_rows"]
+                        check(torch.equal(out, want),
+                              f"{size} {name} {kind} n={n}: the kernel "
+                              "lookup differs from table[ids]")
+                        check(launched == 1,
+                              f"{size} {name} {kind}: {launched} gather_rows "
+                              "launches a lookup, want 1")
+                        sh = shard.detach().clone().requires_grad_()
+                        got = make_sharded_lookup(mesh, spec, plan)(sh, ids)
+                        check(torch.equal(got.detach(), want),
+                              f"{size} {name} {kind} n={n}: the lookup with "
+                              "grad differs from table[ids]")
+                        (g,) = torch.autograd.grad(
+                            0.5 * torch.sum((got - tgt) ** 2), sh)
+                        err = float((g - g_want).abs().max())
+                        check(err <= SHARDED_GRAD_ATOL,
+                              f"{size} {name} {kind} n={n}: gradient off "
+                              f"by {err:.3e}")
+                        lookups[f"{size}/{name}/{kind}/{n}"] = err
+        report["lookups_grad_err"] = lookups
+        # the kernel path with grad mode on: a table that needs no gradient
+        # still goes through gather_rows; one that does is refused
+        lk = make_sharded_lookup(mesh, spec, plan, use_kernel=True)
+        reset_launches()
+        out = lk(shard, ids)
+        torch.cuda.synchronize()
+        check(read_launches()["gather_rows"] == 1 and torch.equal(out, want),
+              "a grad-mode kernel lookup did not go through gather_rows")
+        refusal = ""
+        try:
+            lk(shard.detach().clone().requires_grad_(), ids)
+        except RuntimeError as e:
+            refusal = str(e)
+        check("no backward" in refusal, "a kernel lookup recording a "
+              f"gradient was not refused ({refusal or 'it ran'})")
+        print(f"[sharded] use_kernel with grad mode on: gather_rows "
+              f"launched for a table without a gradient, refused for one "
+              f"with ({kind})")
+        print(f"[sharded] lookups on the card, plans replicated/row/col/"
+              f"row_col, the head's tables ({CF_USERS:,} x {CF_DIM}, "
+              f"{cfg.vocab_size:,} x {CF_DIM}) and RecLLM-base's ({n_users:,}"
+              f" x 64, {tcfg_model.padded_vocab:,} x 64), {SHARDED_IDS} ids: "
+              f"one gather_rows launch a no_grad lookup, bit-equal to "
+              f"table[ids]; gradients within {max(lookups.values()):.3e} of "
+              f"the replicated gather's (limit {SHARDED_GRAD_ATOL:g})")
+
+        # -- (b) the launcher's CF head under each plan --------------------
+        deterministic(torch, False)
+        ecfg = EngineConfig(n_slots=8, max_len=512)
+        requests = generate(TrafficConfig(n_requests=16,
+                                          vocab_size=cfg.vocab_size, seed=0,
+                                          candidates=CF_CANDIDATES,
+                                          n_users=CF_USERS))
+        kern = tf.ModelCtx(attn_impl="flash", decode_impl="flash",
+                           attn_chunk=8)
+        params = convert.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        user, item = tables["head"]["cf_user"], tables["head"]["cf_item"]
+
+        def head(kind):
+            return CFHead(user, item, cfg=CFConfig(plan=kind), device=dev,
+                          mesh=mesh)
+
+        def engine(kind, clock=None, tracer=None):
+            return ServingEngine(make_backend(cfg, params, kern, device=dev),
+                                 ecfg, clock, tracer=tracer,
+                                 cf_head=head(kind))
+
+        engine("row").run(requests)         # warm-up: the sharded path too
+        pinned = {}
+        for kind in ("replicated",) + SHARDED_PLANS:
+            eng = engine(kind, Clock(fixed_decode_s=0.01,
+                                     fixed_prefill_s=0.02, fixed_cf_s=0.005))
+            reset_launches()
+            out, _, summary = eng.run(requests)
+            torch.cuda.synchronize()
+            pinned[kind] = (eng, out, read_launches())
+            check(summary["finished"] == len(requests)
+                  and eng.cf_scored == len(requests),
+                  f"sharded {kind}: served {summary['finished']}, scored "
+                  f"{eng.cf_scored} of {len(requests)}")
+        eng_r, out_r, l_r = pinned["replicated"]
+        check(l_r["gather_rows"] == 2 * eng_r.cf_scored,
+              f"replicated head: {l_r['gather_rows']} gather_rows launches "
+              f"for {eng_r.cf_scored} scored requests")
+        for kind in SHARDED_PLANS:
+            eng, out, launched = pinned[kind]
+            div = _first_divergence(out, out_r)
+            check(div is None, f"sharded {kind}: greedy streams differ from "
+                               f"the replicated head's at {div}")
+            for rid, want in eng_r.cf_results.items():
+                for k in ("cf", "fused", "ranking"):
+                    check(np.array_equal(eng.cf_results[rid][k], want[k]),
+                          f"sharded {kind}: request {rid}'s {k} differs "
+                          "from the replicated head's")
+            check(launched == l_r, f"sharded {kind}: launches {launched}, "
+                                   f"the replicated head's {l_r}")
+        rounds = {k: [] for k in ("replicated",) + SHARDED_PLANS}
+        walls = {}
+        for rnd in range(SHARDED_CF_ROUNDS):
+            order = list(rounds) if rnd % 2 == 0 else list(rounds)[::-1]
+            for kind in order:
+                tr = Tracer()
+                t0 = time.perf_counter()
+                engine(kind, tracer=tr).run(requests)
+                walls[kind] = time.perf_counter() - t0
+                rounds[kind] += [e["dur"] * 1e3 for e in tr.events
+                                 if e["name"] == "cf.lookup"]
+        p50 = {k: float(np.percentile(v, 50)) for k, v in rounds.items()}
+        prof = profile_serve(torch, "cf row", lambda: engine("row").run(
+            requests), walls["row"], CF_TAGS)
+        gather_ms = prof["device_ms_per_launch"].get("gather_rows")
+        report["serve"] = {
+            "launches": {k: v[2] for k, v in pinned.items()},
+            "cf_lookup_ms_p50": p50, "profile": prof,
+            "gather_rows_device_ms": gather_ms}
+        print(f"[sharded] the launcher's CF head on {cfg.name} bf16, "
+              f"{len(requests)} requests x {CF_CANDIDATES} candidates: "
+              f"pinned-clock streams, cf/fused/ranking and launches under "
+              f"row/col/row_col == the replicated head's (gather_rows "
+              f"{l_r['gather_rows']} = 2 x {eng_r.cf_scored}); cf.lookup a "
+              f"request p50 ms ({SHARDED_CF_ROUNDS} runs each, in turns): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in p50.items())
+              + "; gather_rows device ms a call on the row path: "
+              + ("not measured" if gather_ms is None
+                 else f"{gather_ms:.5f}") + f" ({card})")
+
+        # -- (c) the hybrid step with embed_plans at full width ------------
+        del params, pinned
+        gc.collect()
+        torch.cuda.empty_cache()
+        deterministic(torch, True)
+        rng = np.random.default_rng(7)
+        batches = [{k: torch.from_numpy(v.astype(np.int32)).to(dev)
+                    for k, v in {
+                        "tokens": rng.integers(3, tcfg_model.vocab_size,
+                                               (TRAIN_BATCH, TRAIN_SEQ)),
+                        "targets": rng.integers(3, tcfg_model.vocab_size,
+                                                (TRAIN_BATCH, TRAIN_SEQ)),
+                        "user": rng.integers(0, n_users,
+                                             TRAIN_BATCH)}.items()}
+                   for _ in range(HYBRID_REC_STEPS)]
+        ctx = ModelCtx(attn_chunk=TRAIN_SEQ)
+        tcfg = TrainConfig(steps=TRAIN_STEPS, learning_rate=3e-3,
+                           warmup_steps=5, checkpoint_every=0)
+
+        def hybrid_loss(p, b, c):
+            return recmodel.recllm_loss(tcfg_model, p, b, c)
+
+        losses = {}
+        for kind in ("replicated", "row", "row_col"):
+            plan = auto_plan(tcfg_model, mesh, ShapeConfig(
+                "recllm", TRAIN_SEQ, TRAIN_BATCH, "train"), ParallelConfig(),
+                embed_plans=(None if kind == "replicated"
+                             else recmodel.embed_plans(kind)))
+            step, state, _ = _hybrid_state(torch, tcfg_model, n_users, mesh,
+                                           plan, tcfg, hybrid_loss, ctx,
+                                           batches[0])
+            losses[kind] = trainer.train_loop(state, iter(batches), step,
+                                              tcfg).losses
+            del step, state
+        base = losses["replicated"]
+        rel = {}
+        for kind in ("row", "row_col"):
+            rel[kind] = max(abs(a - b) / abs(b)
+                            for a, b in zip(losses[kind], base))
+            check(rel[kind] <= SHARDED_REC_RTOL,
+                  f"RecLLM hybrid under {kind}: {losses[kind]} against the "
+                  f"replicated plan's {base}")
+        report["recllm"] = {"losses": losses, "max_rel": rel}
+        print(f"[sharded] RecLLM-base float32 full width through the hybrid "
+              f"step, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+              f"{HYBRID_REC_STEPS} seeded batches: replicated losses "
+              f"{[round(x, 5) for x in base]}; " + "; ".join(
+                  f"embed_plans({k!r}) within {rel[k]:.2e} relative (limit "
+                  f"{SHARDED_REC_RTOL:g}), bit-equal "
+                  f"{losses[k] == base}" for k in rel))
+    finally:
+        deterministic(torch, False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return report
+
+
+def deterministic(torch, on):
+    """Deterministic algorithms on or off (uninitialised memory left
+    unfilled while on, as the training phases run)."""
+    torch.use_deterministic_algorithms(on)
+    torch.utils.deterministic.fill_uninitialized_memory = not on
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
@@ -3928,6 +4207,8 @@ def main(argv=None) -> int:
         report["pipelined_training"] = timed(
             "pipelined_training", phase_pipelined_training,
             report["device"]["card"], report["hybrid_training"])
+        report["sharded_cf"] = timed("sharded_cf", phase_sharded_cf,
+                                     report["device"]["card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3961,6 +4242,12 @@ def main(argv=None) -> int:
                 "launches_cached":
                 cf["runs"]["cached"]["launches"]["gather_rows"],
                 "device_ms": cf["gather_rows_device_ms"]}
+    # ... and on the sharded heads' path (the same counts under every plan)
+    sharded = report["sharded_cf"]["serve"]
+    cf_serve["sharded"] = {
+        "launches": {k: v["gather_rows"]
+                     for k, v in sharded["launches"].items()},
+        "device_ms_row": sharded["gather_rows_device_ms"]}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape

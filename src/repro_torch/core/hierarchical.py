@@ -21,7 +21,9 @@ Hierarchical all-reduce reduce-scatters over ``data``, all-reduces the
 cross-pod link carries 1/|data| of the bytes of a flat all-reduce.
 
 :func:`neighbour` and :func:`exchange` are the pipeline's point-to-point
-messages between stages (``core/pipeline.py``).
+messages between stages (``core/pipeline.py``); :func:`all_to_all` swaps
+batch slices for column slices in the sharded embedding lookup
+(``embeddings/lookup.py``).
 """
 from __future__ import annotations
 
@@ -216,6 +218,31 @@ def reduce_scatter_dim(x: torch.Tensor, mesh: DPMesh, axes: Sequence[str],
     out = x.new_empty((flat.numel() // n,))
     dist.reduce_scatter_tensor(out, flat, group=mesh.ordered_group(axes))
     return out.reshape(shape[:dim] + (c,) + shape[dim + 1:])
+
+
+def all_to_all(x: torch.Tensor, mesh: DPMesh, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    ``x``'s ``split_dim`` cut into |axis| blocks, block ``j`` sent to the
+    rank at index ``j`` along ``axis``, and the blocks received laid side
+    by side on ``concat_dim`` in the axis's order.  Swapping the two dims
+    is its inverse."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    shape = tuple(x.shape)
+    if shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {shape} does not split over "
+                         f"{n}")
+    c = shape[split_dim] // n
+    send = x.reshape(shape[:split_dim] + (n, c) + shape[split_dim + 1:]
+                     ).movedim(split_dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv.view(-1), send.view(-1),
+                           group=mesh.ordered_group((axis,)))
+    cut = shape[:split_dim] + (c,) + shape[split_dim + 1:]
+    return recv.movedim(0, concat_dim).reshape(
+        cut[:concat_dim] + (n * cut[concat_dim],) + cut[concat_dim + 1:])
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: DPMesh,

@@ -108,8 +108,9 @@ def auto_plan(cfg: ArchConfig, mesh, shape: ShapeConfig,
               embed_plans=None) -> Plan:
     """The plan for ``cfg`` training or serving ``shape`` on ``mesh`` (a
     :class:`~repro_torch.core.hierarchical.DPMesh`, or anything with its
-    ``shape`` dict and ``axis_names``).  ``embed_plans`` (the sharded CF
-    tables) raises: not ported yet."""
+    ``shape`` dict and ``axis_names``).  ``embed_plans`` (top-level
+    param key -> :class:`~repro_torch.embeddings.EmbedPlan`, the sharded
+    CF tables) passes through to the sharding plan."""
     notes: List[str] = []
     training = shape.kind == "train"
     n_chips = math.prod(mesh.shape.values())
@@ -150,6 +151,9 @@ def auto_plan(cfg: ArchConfig, mesh, shape: ShapeConfig,
 
     sharding = make_plan(mesh, pcfg, seq_shard=seq_shard, dp_heavy=dp_heavy,
                          embed_plans=embed_plans)
+    if embed_plans:
+        notes.append("embed tables via EmbedPlan: " + ", ".join(
+            f"{k}={p.kind}" for k, p in sorted(embed_plans.items())))
 
     # --- gradient sync mode -------------------------------------------------
     grad_sync = pcfg.grad_sync

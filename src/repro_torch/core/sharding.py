@@ -14,8 +14,14 @@ divisibility-guarded: a dim that does not divide over its axes falls back
 to replication.  The rules of every family are copied (pure logic); the
 hybrid train step (``runtime/trainer.py``) runs the dense uniform family
 only.  :func:`pp_stage_specs` lays out the pipelined step's stage stack.
-``embed_plans`` (the sharded CF tables) and ``cache_specs`` (serving) are
-not ported yet (``ROADMAP.md``).
+``cache_specs`` (serving) is not ported yet (``ROADMAP.md``).
+
+Embedding tables route through the sparse-embedding subsystem: top-level
+param keys named in ``embed_plans`` (the recsys CF factor tables) take
+their placement from an :class:`~repro_torch.embeddings.table.EmbedPlan`
+(row / col / 2D sharding on the same mesh) instead of the LM rules, and
+the model looks them up through the sharded lookup
+(``embeddings/lookup.py``: ``tp_embed_lookup``, ``tp_embed_rows``).
 
 Under GSPMD ``constrain`` pins activation shardings and XLA inserts the
 collectives; here :class:`TPHooks` is that placement done by hand, through
@@ -38,13 +44,17 @@ forward (identity <-> all-reduce, all-gather <-> reduce-scatter):
   vocab shard) enters through the identity whose backward all-reduces,
   so its gradient is the whole sum on every rank;
 * the loss is the global mean: the mask count is summed over the batch
-  axes, so each rank's loss is its own sum over that count.
+  axes, so each rank's loss is its own sum over that count;
+* a table sharded by an embed plan is looked up by the sharded lookup
+  body (a masked local gather all-reduced over its row axis, ids
+  all-gathered and an all-to-all over its column axis), whose result
+  enters the vocab-parallel work through the identity above.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -92,6 +102,10 @@ class ShardingPlan:
     # (model included); weights stay model-sharded for storage and are
     # all-gathered at use (FSDP) -- activations never reshard.
     dp_heavy: bool = False
+    # top-level param keys placed by the embeddings subsystem (name ->
+    # embeddings.table.EmbedPlan) rather than the LM rules: the recsys CF
+    # tables under the hybrid mesh
+    embed_plans: Optional[Dict[str, Any]] = None
 
     # -- helpers -----------------------------------------------------------
 
@@ -142,6 +156,10 @@ class ShardingPlan:
         def rule(names, leaf) -> Tuple:
             last = names[-1]
             shape = tuple(leaf.shape)
+            if self.embed_plans and names[0] in self.embed_plans \
+                    and len(shape) == 2:
+                ep = self.embed_plans[names[0]]
+                return self.guard((ep.row_axis, ep.col_axis), shape)
             base: Tuple = ()
             if "moe" in names:
                 dp = self.dp_axes if len(self.dp_axes) > 1 \
@@ -302,11 +320,8 @@ def spec_has_axis(spec: Tuple, axis: str) -> bool:
 def make_plan(mesh: DPMesh, pcfg: ParallelConfig,
               seq_shard: Optional[bool] = None,
               dp_heavy: bool = False,
-              embed_plans=None) -> ShardingPlan:
-    if embed_plans:
-        raise NotImplementedError(
-            "embed_plans (the sharded CF-table plans) are not ported yet "
-            "(ROADMAP.md)")
+              embed_plans: Optional[Dict[str, Any]] = None
+              ) -> ShardingPlan:
     axes = set(mesh.axis_names)
     dp_axes = tuple(a for a in ("pod", "data") if a in axes)
     tp_axis = "model" if "model" in axes else None
@@ -318,6 +333,7 @@ def make_plan(mesh: DPMesh, pcfg: ParallelConfig,
         else seq_shard,
         zero1=True,
         dp_heavy=dp_heavy,
+        embed_plans=embed_plans,
     )
 
 
@@ -422,6 +438,20 @@ class _Scatter(torch.autograd.Function):
         return hier.gather_dim(g, *ctx.where), None, None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    """All-to-all over one axis (``split_dim`` blocks swapped for
+    ``concat_dim`` blocks) forward, the inverse all-to-all backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.where = (mesh, axis, concat_dim, split_dim)
+        return hier.all_to_all(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return hier.all_to_all(g, *ctx.where), None, None, None, None
+
+
 class _VocabNLL(torch.autograd.Function):
     """Per-position NLL over vocab-sharded logits: the row max and the sum
     of exps all-reduced over ``model``, the target's logit from the rank
@@ -467,10 +497,14 @@ class TPHooks:
     constraint).  A micro-batch whose rows do not divide over the batch
     axes is replicated over them, as the guard replicates it: every rank
     then computes the whole loss, and :meth:`mean` divides it by the
-    number of ranks so that the gradient sums stay exact."""
+    number of ranks so that the gradient sums stay exact.
+
+    ``tables`` maps each table of ``plan.embed_plans`` to the plan it is
+    looked up by (``embeddings.lookup.embed_table_plans``), for the
+    model's ``tp_embed_lookup``/``tp_embed_rows``."""
 
     def __init__(self, plan: ShardingPlan, cfg: ArchConfig, *, seq_len: int,
-                 rows: int):
+                 rows: int, tables: Optional[Dict[str, Any]] = None):
         mesh = self.mesh = plan.mesh
         M = plan.tp_axis
         self.axis = (M,) if M else ()
@@ -482,6 +516,7 @@ class TPHooks:
         n_b = mesh.size(self.batch_axes)
         self.rep = 1 if rows % n_b == 0 else n_b
         self.vocab_off, self.kv_cols = 0, None
+        self.tables = dict(tables or {})
         if self.tp > 1:
             self._check(cfg)
             self.vocab_off = self.rank * cfg.padded_vocab // n

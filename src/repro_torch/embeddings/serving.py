@@ -1,11 +1,14 @@
 """Serving-side embedding lookups: a frequency-cached hot-row replica in
-front of the table's gather (port of ``repro/embeddings/serving.py``, the
-replicated plan).
+front of the table's gather or the sharded exchange (port of
+``repro/embeddings/serving.py``).
 
 Zipfian id traffic concentrates lookups on a small head of rows: a request
 batch of C candidate ids mostly revisits the same few hundred hot items.
-This module serves that head from a host-side replica and sends only the
-cold tail to the device:
+Under the row/col/2D sharding plans every one of those lookups pays a
+cross-shard exchange (an all-reduce of (U, D) partials and/or an
+all-to-all of column slices) even though the answer is the same bytes as
+last request.  This module serves that head from a host-side replica and
+sends only the cold tail to the device:
 
 * :class:`FreqTracker` -- exact decayed-count popularity over row ids
   (counts halve every ``1/(1-decay)`` observations, so yesterday's hot head
@@ -16,17 +19,28 @@ cold tail to the device:
   updates, so a cache hit is bit-identical to the gather.
 * :class:`CachedLookup` -- the serving lookup over one table: partition the
   requested ids into hits (read from the replica, no device work) and
-  misses (gathered from the authoritative table on the device through
-  ``ops.embedding_gather``: the ``gather_rows`` CUDA kernel for a table on
-  the card, its plain version on the CPU), stitched back in request order.
-  Rows-touched refresh (:func:`repro_torch.embeddings.update.rows_touched`)
-  keeps the replica exact after trainer updates.
+  misses, stitched back in request order.  Misses are gathered from the
+  authoritative table on the device through ``ops.embedding_gather`` (the
+  ``gather_rows`` CUDA kernel for a table on the card, its plain version
+  on the CPU): the whole table under the replicated plan, this rank's
+  shard through the sharded lookup (``embeddings/lookup.py``, padded to a
+  bucket) under the others.  Rows-touched refresh
+  (:func:`repro_torch.embeddings.update.rows_touched`) keeps the replica
+  exact after trainer updates.
+
+The sharded lookups are SPMD: every rank of the mesh calls the lookup with
+the same ids (as JAX's single controller hands the same ids to all its
+devices) and keeps the same replica.  ``col`` plans split the padded ids
+over ``data`` and the result is all-gathered over ``data``, so every rank
+returns all of ``table[ids]``.  The sharded lookup is bit-identical to a
+replicated gather (the all-reduce adds exact-zero partials from non-owner
+shards, the all-to-all is data movement), so cached and uncached lookups
+agree bit for bit under every plan.
 
 The tracker, the replica and the id -> slot map are host-side numpy, as in
-the JAX package; the authoritative table is a float32 tensor on the
-lookup's device, with a host copy that elections and refreshes read.  The
-row / column / 2-D sharded plans (the JAX package's shard_map exchange) are
-not ported yet (``ROADMAP.md``): any plan but ``"replicated"`` raises.
+the JAX package; the authoritative table (or this rank's shard of it) is a
+float32 tensor on the lookup's device, with a full host copy that
+elections and refreshes read.
 """
 from __future__ import annotations
 
@@ -37,20 +51,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.embeddings.table import EmbedSpec
+from repro_torch.core import hierarchical as hier
+from repro_torch.embeddings.lookup import make_sharded_lookup
+from repro_torch.embeddings.table import (EmbedPlan, EmbedSpec, make_plan,
+                                          named_sharding)
 from repro_torch.embeddings.update import rows_touched
 from repro_torch.kernels import ops
 
-PLANS = ("replicated",)
 DECAY = 0.98          # per-observation count decay of the hot-row tracker
-
-
-def check_plan(kind: str) -> None:
-    """Raise for a placement plan the port does not serve."""
-    if kind not in PLANS:
-        raise NotImplementedError(
-            f"the {kind!r} embedding plan is not ported yet (the port "
-            "serves the replicated plan; see ROADMAP.md)")
+DP_AXIS = "data"      # the axis the sharded miss path splits its ids over
 
 
 class FreqTracker:
@@ -91,9 +100,9 @@ class HotRowCache:
     set), restoring bit-exactness without a full re-election.
     """
 
-    def __init__(self, n_rows: int, capacity: int):
+    def __init__(self, n_rows: int, capacity: int, decay: float = DECAY):
         self.capacity = int(capacity)
-        self.tracker = FreqTracker(n_rows)
+        self.tracker = FreqTracker(n_rows, decay)
         self.ids = np.empty(0, np.int64)
         self.slot_of: Dict[int, int] = {}
         self.rows = np.empty((0, 0), np.float32)
@@ -145,10 +154,12 @@ class HotRowCache:
 
 @dataclasses.dataclass(frozen=True)
 class CacheConfig:
-    """The hot-row replica on one serving lookup: its capacity.  The head
-    is re-elected after every lookup, with counts decayed by ``DECAY``."""
+    """Knobs of the hot-row replica on one serving lookup."""
 
     rows: int = 0                  # cache capacity (0 = cache off)
+    decay: float = DECAY           # per-observation count decay
+    elect_every: int = 1           # lookups between head re-elections
+    miss_quantum: int = 8          # miss-path pad bucket (x dp size)
 
 
 def host_copy(table) -> np.ndarray:
@@ -160,17 +171,25 @@ def host_copy(table) -> np.ndarray:
 
 class CachedLookup:
     """One table's serving lookup: hot-row replica first, the device gather
-    only for the cold tail.
+    (or the sharded exchange) only for the cold tail.
 
-    ``table`` is the authoritative (rows, dim) table (numpy or a tensor);
-    it is kept as a float32 tensor on ``device`` (``cuda`` unless asked
-    otherwise) with a host copy.  ``lookup(ids) -> (n, D) float32`` equals
-    ``table[ids]`` exactly, plus per-call hit/miss stats.
+    ``table`` is the authoritative (rows, dim) table (numpy or a tensor),
+    placed by ``plan``.
+    With a ``mesh`` (a :class:`~repro_torch.core.hierarchical.DPMesh` over
+    the initialised world) and a sharded plan, this rank keeps its shard
+    of the table, cut by the plan's spec, as a float32 tensor on
+    ``device`` (``cuda`` unless asked otherwise); otherwise the whole
+    table.  ``lookup(ids) -> (n, D) float32`` equals ``table[ids]``
+    exactly, plus per-call hit/miss stats; under a sharded plan every rank
+    calls it with the same ids.  The sharded miss path splits its ids over
+    ``data`` (:data:`DP_AXIS`; a column axis other than that raises, as in
+    the JAX package) and pads them to a bucket (a power-of-two multiple of
+    the ``data`` size times ``miss_quantum``), so it sees a handful of
+    shapes.
     """
 
-    def __init__(self, spec: EmbedSpec, plan: str, table, device=None,
-                 cache: CacheConfig = CacheConfig()):
-        check_plan(plan)
+    def __init__(self, spec: EmbedSpec, plan: EmbedPlan, table, device=None,
+                 cache: CacheConfig = CacheConfig(), mesh=None):
         self.spec, self.plan, self.ccfg = spec, plan, cache
         self.device = resolve_device(device)
         # always copy: update_rows writes the host copy in place
@@ -178,11 +197,19 @@ class CachedLookup:
         if self._host.shape != (spec.rows, spec.dim):
             raise ValueError(f"{spec.name}: table shape {self._host.shape} "
                              f"!= spec ({spec.rows}, {spec.dim})")
+        self.mesh = mesh
+        self._ndp = 1
+        self._sharded = None
+        if mesh is not None and plan.kind != "replicated":
+            self._sharded = make_sharded_lookup(mesh, spec, plan, DP_AXIS,
+                                                use_kernel=True)
+            self._ndp = mesh.shape.get(DP_AXIS, 1)
+            self._placement = named_sharding(mesh, plan)
         self._sync_device()
-        self.cache = (HotRowCache(spec.rows, cache.rows)
+        self.cache = (HotRowCache(spec.rows, cache.rows, cache.decay)
                       if cache.rows > 0 else None)
         self.calls = 0
-        self.exchanged_ids = 0          # ids gathered on the device
+        self.exchanged_ids = 0          # ids that took the device path
 
     # -- cache bookkeeping ---------------------------------------------------
 
@@ -205,13 +232,37 @@ class CachedLookup:
 
     # -- the lookup ----------------------------------------------------------
 
+    def _miss_bucket(self, n: int) -> int:
+        """Few miss-path shapes: the next power-of-two multiple of
+        (quantum x DP size); col plans split the id vector over the DP
+        axis, so the padded count must divide by it."""
+        q = max(1, self.ccfg.miss_quantum) * self._ndp
+        b = q
+        while b < n:
+            b *= 2
+        return b
+
     def _exchange(self, ids: np.ndarray) -> np.ndarray:
         """table[ids] gathered on the device (one ``gather_rows`` launch on
-        the card), back on the host."""
-        ids_dev = torch.as_tensor(ids, dtype=torch.int32, device=self.device)
-        out = ops.embedding_gather(self._table_dev, ids_dev)
-        self.exchanged_ids += len(ids)
-        return out.cpu().numpy()
+        the card: on the whole table, or on this rank's shard inside the
+        sharded lookup), back on the host."""
+        n = len(ids)
+        if self._sharded is None:
+            ids_dev = torch.as_tensor(ids, dtype=torch.int32,
+                                      device=self.device)
+            out = ops.embedding_gather(self._table_dev, ids_dev)
+            self.exchanged_ids += n
+            return out.cpu().numpy()
+        pad = self._miss_bucket(n)
+        padded = np.zeros(pad, np.int32)
+        padded[:n] = ids
+        ids_dev = torch.as_tensor(padded, device=self.device)
+        with torch.no_grad():
+            out = self._sharded(self._table_dev, ids_dev)
+            if self._ndp > 1:       # every rank returns every row
+                out = hier.gather_dim(out, self.mesh, (DP_AXIS,), 0)
+        self.exchanged_ids += pad
+        return out.cpu().numpy()[:n]
 
     def __call__(self, ids) -> Tuple[np.ndarray, Dict[str, int]]:
         """(rows (n, D) float32 == table[ids] bit-for-bit, stats)."""
@@ -228,13 +279,20 @@ class CachedLookup:
         n_miss = int((~hit).sum())
         if n_miss:
             rows[~hit] = self._exchange(flat[~hit])
-        self.cache.refresh(self._host)
+        if self.ccfg.elect_every and \
+                self.calls % self.ccfg.elect_every == 0:
+            self.cache.refresh(self._host)
         return rows, {"hits": int(hit.sum()), "misses": n_miss}
 
     # -- table updates / staleness -------------------------------------------
 
     def _sync_device(self) -> None:
-        self._table_dev = torch.tensor(self._host, device=self.device)
+        """The device table from the host copy: this rank's shard, re-cut
+        by the plan's spec, under a sharded plan."""
+        full = torch.from_numpy(self._host)
+        if self._sharded is not None:
+            full = self._placement.shard(full)
+        self._table_dev = full.to(self.device, copy=True).contiguous()
 
     def update_rows(self, ids, rows, refresh: bool = True) -> np.ndarray:
         """Land a trainer update: ``table[ids] = rows`` (duplicate ids: last
@@ -261,7 +319,7 @@ class CachedLookup:
 
     def summary(self) -> Dict:
         return {
-            "table": self.spec.name, "plan": self.plan,
+            "table": self.spec.name, "plan": self.plan.kind,
             "cache_rows": self.ccfg.rows, "cached_now": self.n_cached,
             "hits": self.hits, "misses": self.misses,
             "hit_rate": self.hit_rate,
@@ -271,8 +329,11 @@ class CachedLookup:
 
 def make_cached_lookup(name: str, table, kind: str = "replicated",
                        device=None, cache: CacheConfig = CacheConfig(),
-                       ) -> CachedLookup:
+                       mesh=None, row_axis: str = "model",
+                       col_axis: str = "data") -> CachedLookup:
     """Convenience: spec from the table's shape, plan from ``kind``."""
     t = host_copy(table)
     spec = EmbedSpec(name, rows=t.shape[0], dim=t.shape[1])
-    return CachedLookup(spec, kind, t, device=device, cache=cache)
+    plan = make_plan(kind, row_axis=row_axis, col_axis=col_axis)
+    return CachedLookup(spec, plan, t, device=device, cache=cache,
+                        mesh=mesh)

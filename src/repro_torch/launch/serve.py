@@ -37,10 +37,14 @@ fusion, candidate ranking).  ``--cf-cache-rows`` sizes a hot-row replica
 in front of each table's device gather (scores are bit-identical with the
 cache on or off).  It is off by default: on the replicated plan its
 per-lookup election costs more than the gathers it saves (``PERF.md``);
-it is there for the sharded plans' exchange.  The sharded plans (``row``, ``col``, ``row_col``) exit
-with the not-ported error.  ``--trace-out FILE`` writes the measured run's
-spans and metrics (``.jsonl`` raw events, anything else Chrome-trace JSON
-for https://ui.perfetto.dev):
+it is there for the sharded plans' exchange.  ``--cf-plan row|col|row_col``
+mounts the head with its tables sharded by that plan on a
+``torch.distributed`` world of one (NCCL on the card, gloo with
+``--device cpu``), as the JAX launcher mounts it on a 1x1 mesh: the
+plan's sharded lookup and its collectives run, over one rank; a
+deployment hands in its training mesh.  ``--trace-out FILE`` writes the
+measured run's spans and metrics (``.jsonl`` raw events, anything else
+Chrome-trace JSON for https://ui.perfetto.dev):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --candidates 8 --cf-plan replicated --trace-out trace.json
@@ -50,15 +54,20 @@ import dataclasses
 import json
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert, resolve_device
 from repro_torch.cache_layout import CacheLayout
 from repro_torch.config import get_arch, list_archs, reduced
+from repro_torch.core import hierarchical
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.transformer import ModelCtx
 from repro_torch.obs import MetricsRegistry, Tracer, write_trace
 from repro_torch.serving import (CFHead, EngineConfig, ServingEngine,
                                  TrafficConfig, generate, make_backend)
 from repro_torch.serving.metrics import format_report
+
+SHARDED = ("row", "col", "row_col")     # CF plans served over a mesh
 
 
 def run_engine(args) -> int:
@@ -94,13 +103,28 @@ def run_engine(args) -> int:
     ctx = ModelCtx(attn_impl=args.attn_impl, attn_chunk=8,
                    use_kernels=args.kernels)
 
+    own_world = args.cf_plan in SHARDED and not dist.is_initialized()
+    if own_world:
+        hierarchical.init_world_of_one(device)
+    try:
+        return _serve(args, cfg, params, device, tcfg, requests, layout,
+                      ecfg, ctx)
+    finally:
+        if own_world:
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, params, device, tcfg, requests, layout, ecfg,
+           ctx) -> int:
+    mesh = make_host_mesh() if args.cf_plan in SHARDED else None
+
     def mk_cf_head():
         if args.cf_plan == "off":
             return None
         return CFHead.build(
             n_users=tcfg.n_users, n_items=cfg.vocab_size, cf_dim=16,
             seed=args.seed, plan=args.cf_plan,
-            cache_rows=args.cf_cache_rows, device=device)
+            cache_rows=args.cf_cache_rows, device=device, mesh=mesh)
 
     def mk_server(tracer=None, metrics=None):
         backend = make_backend(cfg, params, ctx, layout=layout,
@@ -118,7 +142,7 @@ def run_engine(args) -> int:
         metrics = MetricsRegistry() if args.trace_out else None
         server = mk_server(tracer, metrics)
     except (ValueError, NotImplementedError) as e:
-        # layout/family mismatches; a sharded CF plan
+        # layout/family mismatches
         raise SystemExit(str(e))
     outputs, records, summary = server.run(requests)
 
@@ -194,9 +218,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cf-plan", default="off",
                     choices=("off", "replicated", "row", "col", "row_col"),
                     help="mount the CF scoring head with its cf_user/"
-                         "cf_item factor tables under this plan (the port "
-                         "serves replicated; the sharded plans exit with "
-                         "the not-ported error)")
+                         "cf_item factor tables under this plan (row/col/"
+                         "row_col: sharded over a world of one)")
     ap.add_argument("--cf-cache-rows", type=int, default=0,
                     help="hot-row replica capacity per CF table: the "
                          "frequency-tracked head served from the host, "

@@ -20,6 +20,12 @@ default is ``reduced(recllm-base, layers=4)``.  With ``--ckpt-dir`` the run
 resumes from that directory's latest checkpoint, if any, and checkpoints
 every ``max(steps // 4, 25)`` steps, as the JAX example does (each rank's
 compression residual is saved as its row of the ``(ranks, N)`` array).
+``--embed-plan`` / ``--embed-mesh data,model`` print what that CF-table
+sharding plan would cost on that mesh (``embeddings.plan_summary`` of each
+table) before training; training itself is unchanged:
+
+  PYTHONPATH=src python -m repro_torch.launch.train_recsys --full \\
+      --embed-plan row_col --embed-mesh 8,4
 """
 import argparse
 import dataclasses
@@ -28,7 +34,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import embeddings, resolve_device
 from repro_torch.config import TrainConfig, get_arch, reduced
 from repro_torch.core import hierarchical
 from repro_torch.core.sharding import NamedSharding
@@ -47,6 +53,28 @@ def init_world(device: torch.device) -> hierarchical.DPMesh:
     backend = "nccl" if device.type == "cuda" else "gloo"
     dist.init_process_group(backend)
     return hierarchical.make_dp_mesh()
+
+
+def print_embed_plan(cfg, n_users: int, args) -> None:
+    """What the ``--embed-plan`` placement of each CF table would cost on
+    the ``--embed-mesh`` mesh (per-rank shard, modeled wire bytes)."""
+    dp, mp = (int(x) for x in args.embed_mesh.split(","))
+    mesh_shape = {"data": dp, "model": mp}
+    plan = embeddings.make_plan(args.embed_plan)
+    batch_per_dev = max(1, args.batch // dp)
+    for spec in recmodel.embed_specs(cfg, n_users).values():
+        try:
+            s = embeddings.plan_summary(spec, plan, mesh_shape,
+                                        batch_per_dev)
+        except ValueError as e:                  # dims don't divide the mesh
+            print(f"embed[{spec.name}] plan {plan.kind}: skipped ({e})")
+            continue
+        print(f"embed[{spec.name}] plan {plan.kind} on mesh {mesh_shape}: "
+              f"shard ({s['shard_rows']},{s['shard_cols']}) = "
+              f"{s['table_bytes_per_dev']/1e6:.2f} MB/dev, "
+              f"exchange {s['modeled_exchange_bytes']['total']/1e6:.3f} "
+              f"MB/step (sparse DP sync "
+              f"{s['modeled_sparse_sync_bytes']/1e6:.3f} MB)")
 
 
 def main(argv=None) -> int:
@@ -68,6 +96,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--embed-plan", default="replicated",
+                    choices=embeddings.PLANS,
+                    help="CF-table sharding plan to cost (placement summary"
+                         " printed before training)")
+    ap.add_argument("--embed-mesh", default="8,4",
+                    help="data,model mesh extents for the placement summary")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -106,6 +140,9 @@ def _train(args, device, mesh) -> int:
         print(f"RecLLM params: {n / 1e6:.1f}M  (backbone {cfg.num_layers}L "
               f"d={cfg.d_model}), {args.grad_sync} sync over "
               f"{mesh.size(('data',))} rank(s) on {device}")
+
+    if lead:
+        print_embed_plan(cfg, ds.n_users, args)
 
     scfg = trainer.DPSyncConfig(mode=args.grad_sync)
     # the residual as this rank's row of JAX's (ranks, N) array

@@ -67,17 +67,24 @@ def sharded_global_norm(grads, specs, mesh) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def zero_grads(grads, zdims, mesh, dp_axes: Sequence[str]):
+def zero_grads(grads, zdims, mesh, dp_axes: Sequence[str], pspecs):
     """ZeRO-2: each gradient summed over the dp axes, of which this rank
     keeps the slice of its ``zdims`` dim (the dim ZeRO-1 shards over the dp
-    axes); a leaf with no such dim (``None``) is all-reduced whole."""
-    def one(g, dim):
-        if dim is None:
-            return hier.all_reduce_sum(g, mesh, dp_axes)
-        return hier.reduce_scatter_dim(g, mesh, dp_axes, dim)
+    axes); a leaf with no such dim (``None``) is all-reduced whole, over
+    the dp axes its param spec ``pspecs`` does not shard it over: where it
+    does, its shards are disjoint and its gradient already holds every
+    rank's batch (a column-sharded embedding table, whose lookup's
+    all-to-all backward brought it)."""
+    def one(g, dim, spec):
+        if dim is not None:
+            return hier.reduce_scatter_dim(g, mesh, dp_axes, dim)
+        used = {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else e)}
+        axes = tuple(a for a in dp_axes if a not in used)
+        return hier.all_reduce_sum(g, mesh, axes) if axes else g
     if mesh.size(dp_axes) == 1:
         return grads
-    return tree_map(one, grads, zdims)
+    return tree_map(one, grads, zdims, pspecs)
 
 
 def zero_params(shards, zdims, mesh, dp_axes: Sequence[str], out):

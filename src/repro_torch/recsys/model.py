@@ -16,7 +16,9 @@ import torch
 
 from repro_torch import convert, resolve_device
 from repro_torch.config import ArchConfig
-from repro_torch.embeddings import EmbedSpec, dedup_lookup, init_table
+from repro_torch.embeddings import (EmbedPlan, EmbedSpec, dedup_lookup,
+                                    init_table, make_plan)
+from repro_torch.embeddings.lookup import tp_embed_lookup, tp_embed_rows
 from repro_torch.models import layers, transformer as tf
 from repro_torch.models.transformer import ModelCtx
 
@@ -36,6 +38,18 @@ def embed_id_fns() -> Dict[str, Callable[[Dict], torch.Tensor]]:
     against every user (``u @ cf_item.T``), so only ``cf_user`` has a
     sparse gradient."""
     return {"cf_user": lambda batch: batch["user"]}
+
+
+def embed_plans(kind: str = "row", row_axis: str = "model",
+                col_axis: str = "data") -> Dict[str, EmbedPlan]:
+    """The :class:`~repro_torch.embeddings.EmbedPlan` placement of the CF
+    tables under the hybrid mesh: pass to ``auto_plan(...,
+    embed_plans=...)`` / ``ShardingPlan.embed_plans`` so the train step
+    places and looks up the tables by it (row-sharded vocab by default;
+    a table that does not divide falls back to replication through the
+    plan's guard)."""
+    plan = make_plan(kind, row_axis=row_axis, col_axis=col_axis)
+    return {"cf_user": plan, "cf_item": plan}
 
 
 def init_recllm(cfg: ArchConfig, n_users: int, generator: torch.Generator,
@@ -63,15 +77,22 @@ def fuse(lm_logits, cf_scores, fusion_gate):
 def rec_logits(cfg: ArchConfig, params: Dict, batch: Dict,
                ctx: ModelCtx = ModelCtx()):
     """LM logits fused with CF scores.  batch: tokens (B, S), user (B,).
-    Under ``ctx.tp`` the logits are this rank's vocab columns, and the
-    replicated CF tables and gate are used on that shard."""
+    Under ``ctx.tp`` the logits are this rank's vocab columns and the CF
+    tables are used on that shard: a replicated table through the identity
+    whose gradient is summed over ``model``; a table under an embed plan
+    through the sharded lookup (``cf_user``) and as its rows of this
+    rank's vocab shard (``cf_item``: a ``row`` shard is exactly them, so
+    the CF scores land vocab-sharded beside the LM logits; ``col`` shards
+    are gathered over ``data``)."""
     lm_logits, aux, _ = tf.forward(cfg, params["lm"], batch, ctx)
-    cf_user, cf_item = params["cf_user"], params["cf_item"]
-    gate = params["fusion_gate"]
+    cf_item, gate = params["cf_item"], params["fusion_gate"]
     if ctx.tp is not None:
-        cf_user, gate = ctx.tp.copy(cf_user), ctx.tp.copy(gate)
-        cf_item = ctx.tp.vocab_rows(cf_item)
-    u = dedup_lookup(cf_user, batch["user"])             # (B, dc)
+        u = tp_embed_lookup(ctx.tp, "cf_user", params["cf_user"],
+                            batch["user"])
+        cf_item = tp_embed_rows(ctx.tp, "cf_item", cf_item)
+        gate = ctx.tp.copy(gate)
+    else:
+        u = dedup_lookup(params["cf_user"], batch["user"])   # (B, dc)
     cf = u @ cf_item.T                                   # (B, V)
     return fuse(lm_logits, cf[:, None, :], gate), aux
 

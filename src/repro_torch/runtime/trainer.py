@@ -36,9 +36,17 @@ syncs the gradients over ``data`` with the DP step's modes.
 :func:`train_loop`: it times each stage's layers, re-carves the bounds
 and remaps params and AdamW moments.
 
+Under the hybrid step, tables named in the plan's ``embed_plans`` (the
+CF tables) lie row-, column- or 2D-sharded and are looked up through the
+sharded lookup.  A row shard's gradient is exact and local, as a Megatron
+weight's, and is summed over the dp axes like one; a column shard is
+disjoint per ``data`` rank and its gradient already holds every rank's
+batch (the all-to-all's backward brought it), so the ZeRO-2 sum leaves
+``data`` out for it.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-under the hybrid step, MoE (expert parallelism), the rwkv/mamba families
-and ``embed_plans``.
+under the hybrid step, MoE (expert parallelism) and the rwkv/mamba
+families.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ from repro_torch.core import sharding as sharding_lib
 from repro_torch.core.hierarchical import DPMesh
 from repro_torch.core.hybrid import Plan
 from repro_torch.embeddings import update as embed_update
+from repro_torch.embeddings.lookup import embed_table_plans
 from repro_torch.models import layers, transformer as tf
 from repro_torch.models.transformer import ModelCtx
 from repro_torch.obs import timeline as obs_timeline
@@ -182,6 +191,8 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
     pspecs = sh.param_specs(cfg, params_shape)
     ospecs = sh.opt_specs(cfg, params_shape)
     zdims = _zero_dims(cfg, sh, params_shape)
+    tables = embed_table_plans(sh, {k: pspecs[k] for k in
+                                    (sh.embed_plans or {}) if k in pspecs})
     n_b = mesh.size(sh.batch_axes)
     b_idx = mesh.shard_index(sh.batch_axes)
     tc_noclip = dataclasses.replace(tcfg, grad_clip=0.0)
@@ -209,7 +220,8 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
             raise ValueError(f"batch {B} does not split into {accum} "
                              "micro-batches")
         mb = B // accum
-        hooks = sharding_lib.TPHooks(sh, cfg, seq_len=S, rows=mb)
+        hooks = sharding_lib.TPHooks(sh, cfg, seq_len=S, rows=mb,
+                                     tables=tables)
         c = dataclasses.replace(base, tp=hooks)
         # the gradients: float32 sums over the micro-batches (JAX's scan
         # carry), or the one micro-batch's in the params' dtypes
@@ -229,7 +241,7 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
                 tree_map(lambda g: g.div_(accum), grads)
             loss = loss / accum
             # ZeRO-2: each rank keeps only the gradient shard it updates
-            grads = adamw.zero_grads(grads, zdims, mesh, dp)
+            grads = adamw.zero_grads(grads, zdims, mesh, dp, pspecs)
             norm = adamw.sharded_global_norm(grads, ospecs, mesh)
             scale = None
             if tcfg.grad_clip > 0:

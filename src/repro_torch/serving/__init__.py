@@ -6,6 +6,7 @@ from repro_torch.serving.cf_head import CFConfig, CFHead
 from repro_torch.serving.engine import (EngineConfig, NativeBackend,
                                         ServingEngine, SlotBackend,
                                         make_backend, serve)
+from repro_torch.serving.roofline import cf_lookup_bytes
 from repro_torch.serving.metrics import (RequestRecord, WindowedLatency,
                                          format_report, percentile,
                                          summarize)
@@ -16,8 +17,8 @@ from repro_torch.serving.traffic import (BATCH_TIER, INTERACTIVE_TIER, Clock,
 __all__ = [
     "CacheLayout", "EngineConfig", "ServingEngine", "SlotBackend",
     "NativeBackend", "make_backend", "serve", "CFConfig", "CFHead",
-    "RequestRecord", "WindowedLatency", "format_report", "percentile",
-    "summarize",
+    "cf_lookup_bytes", "RequestRecord", "WindowedLatency", "format_report",
+    "percentile", "summarize",
     "Request", "SLOTier", "TrafficConfig", "generate", "Clock",
     "INTERACTIVE_TIER", "BATCH_TIER",
 ]

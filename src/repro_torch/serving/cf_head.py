@@ -1,24 +1,28 @@
 """CF head serving: retrieval->rank candidate scoring inside the engine
-(port of ``repro/serving/cf_head.py``, the replicated plan).
+(port of ``repro/serving/cf_head.py``).
 
 A recommender request is not just a prompt: it is (user id, candidate item
 set, interaction history).  This head scores the candidates through the
-``cf_user`` / ``cf_item`` factor tables and fuses the CF scores with the
-LM's next-item logits through :func:`repro_torch.recsys.model.fuse`, the
-gate training uses too.
+``cf_user`` / ``cf_item`` factor tables, replicated or row/col/2D-sharded
+over a mesh as the recsys trainer shards them, and fuses the CF scores
+with the LM's next-item logits through :func:`repro_torch.recsys.model
+.fuse`, the gate training uses too.
 
 Each table sits behind a :class:`~repro_torch.embeddings.serving
 .CachedLookup`: a frequency-tracked host copy of the hot head serves cache
-hits, and only the cold tail is gathered on the device (the ``gather_rows``
-CUDA kernel on the card).  Scoring needs only the request's last-position
-LM logits row, which every backend's prefill produces:
+hits, and only the cold tail goes to the device: a gather of the whole
+table under the replicated plan, the sharded lookup's exchange under the
+others (the ``gather_rows`` CUDA kernel on the card either way).  Scoring
+needs only the request's last-position LM logits row, which every
+backend's prefill produces:
 
-    head = CFHead.build(n_users=10_000, n_items=vocab, cache_rows=128)
+    head = CFHead.build(n_users=10_000, n_items=vocab, plan="row",
+                        mesh=mesh, cache_rows=128)
     engine = ServingEngine(backend, ecfg, cf_head=head)
 
-Cached and uncached heads give bit-identical scores: the cache is purely a
-saving of device gathers.  The sharded plans wait for the sharded
-embedding tables (``ROADMAP.md``).
+Under a sharded plan every rank of the mesh scores the same requests
+(SPMD).  Cached and uncached heads, and every plan, give bit-identical
+scores: the cache is purely a saving of device gathers and exchanges.
 """
 from __future__ import annotations
 
@@ -29,32 +33,38 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.embeddings import EmbedSpec, init_table
-from repro_torch.embeddings.serving import (CacheConfig, CachedLookup,
-                                            check_plan, host_copy)
+from repro_torch.embeddings import EmbedSpec, init_table, make_plan
+from repro_torch.embeddings.serving import (DECAY, CacheConfig,
+                                            CachedLookup, host_copy)
 from repro_torch.recsys import model as rec_model
 
 
 @dataclasses.dataclass(frozen=True)
 class CFConfig:
-    """Placement + cache size of the serving CF head."""
+    """Placement + cache knobs of the serving CF head."""
 
-    plan: str = "replicated"        # the only plan the port serves
+    plan: str = "replicated"        # replicated | row | col | row_col
     cache_rows: int = 0             # hot-row replica capacity (0 = off)
+    decay: float = DECAY
+    elect_every: int = 1
+    miss_quantum: int = 8
+    row_axis: str = "model"
+    col_axis: str = "data"
 
 
 class CFHead:
     """CF scoring head for the serving engine.
 
     Owns the ``cf_user`` / ``cf_item`` tables (each behind a
-    :class:`CachedLookup` on ``device``) and the fusion gate.  ``score`` is
-    one retrieval->rank step: look up the user's factor row and the
-    candidate item rows, dot them into CF scores, fuse with the LM's
-    last-position logits at the candidate ids, rank.
+    :class:`CachedLookup` on ``device``, sharded over ``mesh`` by the
+    plan) and the fusion gate.  ``score`` is one retrieval->rank step:
+    look up the user's factor row and the candidate item rows, dot them
+    into CF scores, fuse with the LM's last-position logits at the
+    candidate ids, rank.
     """
 
     def __init__(self, user_table, item_table, fusion_gate=0.0,
-                 cfg: CFConfig = CFConfig(), device=None):
+                 cfg: CFConfig = CFConfig(), device=None, mesh=None):
         self.device = resolve_device(device)
         u, it = host_copy(user_table), host_copy(item_table)
         if u.shape[1] != it.shape[1]:
@@ -62,34 +72,39 @@ class CFHead:
                              f"item {it.shape}")
         self.cfg = cfg
         self.fusion_gate = torch.as_tensor(fusion_gate, dtype=torch.float32)
-        cache = CacheConfig(rows=cfg.cache_rows)
+        plan = make_plan(cfg.plan, row_axis=cfg.row_axis,
+                         col_axis=cfg.col_axis)
+        cache = CacheConfig(rows=cfg.cache_rows, decay=cfg.decay,
+                            elect_every=cfg.elect_every,
+                            miss_quantum=cfg.miss_quantum)
         self.lookups: Dict[str, CachedLookup] = {
             "cf_user": CachedLookup(
                 EmbedSpec("cf_user", rows=u.shape[0], dim=u.shape[1]),
-                cfg.plan, u, device=self.device, cache=cache),
+                plan, u, device=self.device, cache=cache, mesh=mesh),
             "cf_item": CachedLookup(
                 EmbedSpec("cf_item", rows=it.shape[0], dim=it.shape[1]),
-                cfg.plan, it, device=self.device, cache=cache),
+                plan, it, device=self.device, cache=cache, mesh=mesh),
         }
         self.requests_scored = 0
 
     @classmethod
     def build(cls, n_users: int, n_items: int, cf_dim: int = 16, *,
               seed: int = 0, plan: str = "replicated", cache_rows: int = 0,
-              device=None, fusion_gate: float = 0.0) -> "CFHead":
+              device=None, mesh=None, fusion_gate: float = 0.0
+              ) -> "CFHead":
         """Fresh factor tables (the :func:`repro_torch.embeddings
         .init_table` convention, drawn from a generator seeded with
         ``seed`` on ``device``) under one plan.  The draws are not JAX's:
         parity tests carry the JAX head's tables over instead."""
-        check_plan(plan)
+        cfg = CFConfig(plan=plan, cache_rows=cache_rows)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         u = init_table(gen, EmbedSpec("cf_user", rows=n_users, dim=cf_dim),
                        device=dev)
         it = init_table(gen, EmbedSpec("cf_item", rows=n_items, dim=cf_dim),
                         device=dev)
-        cfg = CFConfig(plan=plan, cache_rows=cache_rows)
-        return cls(u, it, fusion_gate=fusion_gate, cfg=cfg, device=dev)
+        return cls(u, it, fusion_gate=fusion_gate, cfg=cfg, device=dev,
+                   mesh=mesh)
 
     # -- scoring --------------------------------------------------------------
 

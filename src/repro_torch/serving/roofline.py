@@ -10,7 +10,8 @@ summary equals the JAX engine's under every layout.  A traced
 ``decode_step`` span carries :func:`decode_attn_read_bytes`, the JAX
 package's model of the KV bytes one step streams (its ``block_k=128`` is
 the TPU kernel's tile, kept so the span args equal the JAX engine's; the
-CUDA kernel reads 64-key spans).  The JAX module's
+CUDA kernel reads 64-key spans).  :func:`cf_lookup_bytes` is the serving
+CF lookup's wire-byte model under each table plan.  The JAX module's
 time terms (TPU-model FLOP and bandwidth constants) are not copied: no
 speed figure of that chip applies here.
 """
@@ -123,4 +124,48 @@ def decode_attn_read_bytes(cfg: ArchConfig, lengths: Sequence[int],
         "mean_utilization": (sum(int(x) for x in lengths)
                              / max(len(lengths) * s_max, 1)),
         "attn_read_bytes_per_step": total,
+    }
+
+
+def cf_lookup_bytes(spec, plan, mesh_shape: Dict[str, int], batch: int,
+                    hit_rate: float = 0.0,
+                    dp_axis: str = "data") -> Dict[str, float]:
+    """Modeled per-request wire bytes of the serving CF lookup, cached
+    vs uncached.
+
+    The serving path is forward-only (no gradient conjugate, no DP table
+    sync), so the terms are the lookup half of
+    :func:`repro_torch.embeddings.table.exchange_bytes`: an all-reduce of
+    (U, D/nc) partials over the row shards and/or an id all-gather + (B,
+    D/nc) all-to-all over the column shards, on the same ring model
+    (all-reduce ``2n(P-1)/P``, all-gather / all-to-all ``n(P-1)/P``).
+    ``batch`` is ids looked up per request (user + candidates);
+    ``hit_rate`` is the hot-row cache's measured hit fraction: hits are
+    served from the replicated head and move **zero** wire bytes, so the
+    cached exchange is the uncached one scaled by the miss fraction.  The
+    replicated plan exchanges nothing on either path (its cost is
+    full-table memory).
+    """
+    if not 0.0 <= hit_rate <= 1.0:
+        raise ValueError(f"hit_rate must be in [0, 1], got {hit_rate}")
+    itemsize = 4                        # f32 factor tables
+    nr = mesh_shape.get(plan.row_axis, 1) if plan.row_axis else 1
+    nc = mesh_shape.get(plan.col_axis, 1) if plan.col_axis else 1
+    ring = lambda n: (n - 1) / n if n > 1 else 0.0  # noqa: E731
+
+    def exchange(ids: float) -> float:
+        b = 0.0
+        if plan.row_axis:                # all-reduce of (U, D/nc) partials
+            b += 2 * ids * (spec.dim // nc) * itemsize * ring(nr)
+        if plan.col_axis:                # id all-gather + column all-to-all
+            b += ids * 4 * ring(nc)
+            b += ids * (spec.dim // nc) * itemsize * ring(nc)
+        return b
+
+    uncached = exchange(float(batch))
+    cached = exchange(float(batch) * (1.0 - hit_rate))
+    return {
+        "plan": plan.kind, "batch": batch, "hit_rate": hit_rate,
+        "uncached_bytes": uncached, "cached_bytes": cached,
+        "saved_frac": 1.0 - cached / uncached if uncached else 0.0,
     }

@@ -44,8 +44,7 @@ from repro.serving import traffic as jtraffic
 from repro_torch import convert
 from repro_torch.config import get_arch, reduced
 from repro_torch.embeddings import (CacheConfig, CachedLookup, EmbedSpec,
-                                    FreqTracker, HotRowCache,
-                                    make_cached_lookup)
+                                    FreqTracker, HotRowCache, make_plan)
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving import CFConfig, CFHead
 from repro_torch.serving import engine as teng
@@ -116,7 +115,7 @@ def test_hot_row_cache_matches_reference(table):
 @pytest.mark.parametrize("rows", [0, 24])
 def test_cached_lookup_matches_reference(table, rows):
     spec = EmbedSpec("cf_item", rows=ROWS, dim=DIM)
-    lk = CachedLookup(spec, "replicated", table, device="cpu",
+    lk = CachedLookup(spec, make_plan("replicated"), table, device="cpu",
                       cache=CacheConfig(rows=rows))
     jlk = JCachedLookup(JEmbedSpec("cf_item", rows=ROWS, dim=DIM),
                         jmake_plan("replicated"), table,
@@ -138,7 +137,7 @@ def test_cached_lookup_matches_reference(table, rows):
 def test_update_rows_staleness_matches_reference(table):
     spec = EmbedSpec("cf_item", rows=ROWS, dim=DIM)
     ids = _zipf_ids(128, ROWS, seed=3)
-    lk = CachedLookup(spec, "replicated", table, device="cpu",
+    lk = CachedLookup(spec, make_plan("replicated"), table, device="cpu",
                       cache=CacheConfig(rows=24))
     jlk = JCachedLookup(JEmbedSpec("cf_item", rows=ROWS, dim=DIM),
                         jmake_plan("replicated"), table,
@@ -210,17 +209,6 @@ def test_cf_head_score_matches_reference(gate, cache_rows):
         np.testing.assert_array_equal(got["ranking"], want["ranking"])
         assert sorted(got["ranking"]) == sorted(cand)
     assert _same(head.summary(), jhead.summary())
-
-
-def test_non_replicated_plans_raise():
-    u = np.zeros((4, 8), np.float32)
-    for plan in ("row", "col", "row_col"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            CFHead.build(n_users=4, n_items=8, plan=plan, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            CFHead(u, u, cfg=CFConfig(plan=plan), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_cached_lookup("cf_user", u, kind=plan, device="cpu")
 
 
 # ---------------------------------------------------------------------------

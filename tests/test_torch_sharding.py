@@ -191,15 +191,6 @@ def test_internlm2_train_4k_on_2x2_is_dp_heavy():
     assert any(n.startswith("dp_heavy plan") for n in plan.notes)
 
 
-def test_refusals_name_the_roadmap():
-    from repro_torch import config
-    from repro_torch.core import sharding
-    _, tm = _meshes({"data": 1, "model": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharding.make_plan(tm, config.ParallelConfig(),
-                           embed_plans={"cf_user": object()})
-
-
 @pytest.mark.parametrize("stages", [1, 2, 4])
 @pytest.mark.parametrize("arch", ["olmo-1b", "deepseek-7b", "internlm2-20b"])
 def test_auto_plan_stage_bounds_match_jax(arch, stages):
