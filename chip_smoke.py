@@ -210,6 +210,26 @@ step's compression kernels launched as the DP step launches them); and
 ``probe_stage_times`` over the 16 full-width layers carved ``[0, 4,
 16]`` with the bounds ``rebalance_stages`` gives (they must move).
 
+Then ``sharded_cf``: the CF-table plans (row, col, row_col) on a one-rank
+NCCL world: every plan's lookup through ``gather_rows``, the launcher's
+CF head under each plan against the replicated head, and RecLLM-base
+through the hybrid step under ``embed_plans`` row and row_col
+(``phase_sharded_cf`` says what each holds).
+
+Last, ``async_dp``, the paper's sync-against-async half, on a one-rank
+NCCL world under deterministic algorithms: RecLLM-base at full width
+(float32) through ``core/async_dp.py``'s sync and async simulators on 16
+batches of 32 x 32 (zero staleness within 1e-6 relative of sync; the
+straggler process at max staleness 0, 2 and 6, compensated and naive:
+every loss finite, each stale run parting from zero staleness, no kernel
+launched; final loss, step ms p50 and peak memory printed); the DP step
+fed 8 batches through ``data.Prefetcher(size=2)`` and through
+``data.place_batch`` on the main thread (every batch received, losses
+bit-equal, launches equal; step ms p50 both ways); and
+``runtime/elastic.py`` at one rank (``make_mesh_for(1)`` and ``reshard``
+of the hybrid step's state the identity, ``shrink_batch`` keeping the
+batch).
+
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -4110,6 +4130,239 @@ def phase_sharded_cf(torch, card):
     return report
 
 
+# the async-DP phase: the simulator's batches and runs (staleness process,
+# max staleness, compensated), the training phase's lr and warmup
+ASYNC_STEPS = 16
+ASYNC_LR, ASYNC_WARMUP = 3e-3, 5
+ASYNC_RUNS = [("tau0", "random", 0, True), ("tau0_straggler", "straggler", 0,
+                                            True),
+              ("tau2", "straggler", 2, True), ("tau2_naive", "straggler", 2,
+                                               False),
+              ("tau6", "straggler", 6, True), ("tau6_naive", "straggler", 6,
+                                               False)]
+ASYNC_SYNC_RTOL = 1e-6
+# the prefetcher's run: the DP step with flat sync, the fused AdamW and the
+# rows-touched cf_user sync, so the three kernels of the step all launch
+PREFETCH_STEPS = 8
+PREFETCH_LAUNCHES = {"gather_rows": 1, "scatter_add_rows": 1,
+                     "adamw_update": FUSED_LEAVES}
+
+
+def phase_async_dp(torch, card):
+    """The paper's sync-against-async half on a one-rank NCCL world, under
+    deterministic algorithms: (a) RecLLM-base at full width (float32)
+    through ``core/async_dp.py``'s ``simulate_sync_sgd`` and
+    ``simulate_async_sgd`` on the same 16 batches: zero staleness (the
+    ``random`` process at S = 0) against the sync run, losses within 1e-6
+    relative; the ``straggler`` process at S = 0, 2 and 6, compensated and
+    naive (S = 0: printed; S > 0: each must part from zero staleness at
+    some step); every loss finite; no kernel launched (the simulator's
+    update is elementwise, as in JAX); final loss, step ms p50 and peak
+    memory of each run; (b) the DP step (flat sync, the fused AdamW, the
+    rows-touched cf_user sync) on 8 batches fed once through
+    ``data.Prefetcher(size=2)`` from host numpy and once placed on the
+    main thread by ``data.place_batch``: every batch received, losses
+    bit-equal, the launches of gather_rows, scatter_add_rows and
+    adamw_update equal (and as the step implies); step ms p50 both ways;
+    (c) ``runtime/elastic.py`` at one rank: ``make_mesh_for(1)`` and
+    ``reshard`` of the hybrid step's RecLLM-base state onto it the
+    identity bit for bit, ``shrink_batch`` keeping the batch."""
+    import math
+    import statistics
+
+    import torch.distributed as dist
+    from repro_torch.config import ParallelConfig, ShapeConfig, TrainConfig
+    from repro_torch.core import async_dp, hierarchical
+    from repro_torch.core.hybrid import auto_plan
+    from repro_torch.data import Prefetcher, place_batch
+    from repro_torch.models.transformer import ModelCtx
+    from repro_torch.optimizer import adamw
+    from repro_torch.recsys import dataset, model as recmodel
+    from repro_torch.runtime import elastic, trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    report = {"card": card, "runs": {}}
+    ds = dataset.generate(scale=1.0, seed=0)
+    cfg, n_users = train_config()
+    host = list(dataset.seq_batches(ds, TRAIN_BATCH, TRAIN_SEQ,
+                                    steps=ASYNC_STEPS, seed=7))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in host]
+    ctx = ModelCtx(attn_chunk=TRAIN_SEQ)
+    mesh = hierarchical.init_world_of_one(dev)
+    deterministic(torch, True)
+    try:
+        params0 = recmodel.init_recllm(
+            cfg, n_users, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params = sum(x.numel() for x in tree_leaves(params0))
+        check(n_params == full_width_size(cfg, n_users),
+              f"{n_params} parameters, want {full_width_size(cfg, n_users)}")
+
+        # -- (a) sync against async at full width --------------------------
+        def run(name, simulate):
+            marks = []
+
+            def loss_fn(p, b):
+                if not torch.is_grad_enabled():   # the loss after an update
+                    marks.append(time.perf_counter())
+                return recmodel.recllm_loss(cfg, p, b, ctx)[0]
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            _, losses = simulate(loss_fn)
+            launches = {k: v for k, v in read_launches().items() if v}
+            check(all(math.isfinite(x) for x in losses),
+                  f"async {name}: non-finite loss {losses}")
+            check(not launches, f"async {name}: launched {launches}; the "
+                  "simulator's update is elementwise")
+            steps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+            r = {"losses": losses, "final_loss": losses[-1],
+                 "step_ms_p50": statistics.median(steps),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            report["runs"][name] = r
+            print(f"[async {name}] losses {losses[0]:.5f} -> "
+                  f"{losses[-1]:.5f}; step ms p50 {r['step_ms_p50']:.1f} "
+                  f"(steps 2-{ASYNC_STEPS}); peak {r['peak_gib']:.2f} GiB "
+                  f"({card})")
+            return losses
+
+        sync = run("sync", lambda f: async_dp.simulate_sync_sgd(
+            f, params0, batches, ASYNC_LR, warmup_steps=ASYNC_WARMUP))
+        for name, mode, s_max, comp in ASYNC_RUNS:
+            acfg = async_dp.AsyncConfig(max_staleness=s_max, compensate=comp,
+                                        lr=ASYNC_LR, staleness=mode,
+                                        warmup_steps=ASYNC_WARMUP)
+            run(name, lambda f, acfg=acfg: async_dp.simulate_async_sgd(
+                f, params0, batches, acfg))
+        runs = report["runs"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs["tau0"]["losses"],
+                                                       sync))
+        check(rel <= ASYNC_SYNC_RTOL, f"async tau0: losses {rel} relative "
+              f"from the sync run's > {ASYNC_SYNC_RTOL}")
+        fresh = runs["tau0"]["losses"]
+        for name in ("tau2", "tau2_naive", "tau6", "tau6_naive"):
+            check(runs[name]["losses"] != fresh, f"async {name}: losses equal "
+                  "zero staleness's at every step: the ring is not live")
+        stg = max(abs(a - b) / abs(b) for a, b in zip(
+            runs["tau0_straggler"]["losses"], sync))
+        beats = {s: runs[f"tau{s}"]["final_loss"]
+                 < runs[f"tau{s}_naive"]["final_loss"] for s in (2, 6)}
+        report.update(tau0_sync_rel=rel, tau0_sync_equal=fresh == sync,
+                      tau0_straggler_sync_rel=stg, compensated_beats=beats)
+        print(f"[async] RecLLM-base float32 full width ({n_params:,} "
+              f"parameters), {ASYNC_STEPS} batches of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, lr {ASYNC_LR}: zero staleness within {rel:.3g} "
+              f"relative of sync (limit {ASYNC_SYNC_RTOL:g}; bit-equal "
+              f"{fresh == sync}); straggler S=0 within {stg:.3g} (printed: "
+              "its fast workers draw tau 1, so compensation halves their "
+              "lr); tau > 0 runs part from zero staleness; compensated "
+              "beats naive at S=2: " f"{beats[2]}, S=6: {beats[6]} "
+              "(printed, not held)")
+
+        # -- (b) the prefetcher on the device ------------------------------
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        tcfg = TrainConfig(steps=TRAIN_STEPS, learning_rate=3e-3,
+                           warmup_steps=5, checkpoint_every=0)
+        scfg = trainer.DPSyncConfig(mode="flat", use_kernel=True)
+        esync = trainer.EmbedSyncConfig(id_fns=recmodel.embed_id_fns())
+        step = trainer.make_dp_train_step(
+            lambda p, b: recmodel.recllm_loss(cfg, p, b, ctx)[0], mesh, tcfg,
+            scfg, embed_sync=esync, params_shape=params0, adamw_kernel=True)
+        n_res = trainer.residual_size(params0, scfg, exclude=esync.exclude)
+        feeds = {"prefetch": lambda: Prefetcher(
+                     iter(host[:PREFETCH_STEPS]), size=2, device=dev),
+                 "direct": lambda: (place_batch(b, device=dev)
+                                    for b in host[:PREFETCH_STEPS])}
+        fed = {}
+        for name, feed in feeds.items():
+            params = tree_map(lambda p: p.clone(), params0)
+            opt = adamw.init_opt_state(params)
+            resid = torch.zeros(n_res, dtype=torch.float32, device=dev)
+            losses, wall = [], []
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            for b in feed():
+                params, opt, resid, loss = step(params, opt, resid, b)
+                losses.append(float(loss))
+                t2 = time.perf_counter()
+                wall.append((t2 - t1) * 1e3)
+                t1 = t2
+            launches = {k: v for k, v in read_launches().items() if v}
+            check(len(losses) == PREFETCH_STEPS, f"prefetch {name}: "
+                  f"{len(losses)} batches of {PREFETCH_STEPS}")
+            want = {k: v * PREFETCH_STEPS for k, v in
+                    PREFETCH_LAUNCHES.items()}
+            check(launches == want, f"prefetch {name}: launches {launches}, "
+                  f"want {want}")
+            fed[name] = {"losses": losses, "launches": launches,
+                         "step_ms_p50": statistics.median(wall[1:])}
+            del params, opt, resid
+        check(fed["prefetch"]["losses"] == fed["direct"]["losses"],
+              f"prefetched losses {fed['prefetch']['losses']} differ from "
+              f"the directly placed {fed['direct']['losses']}")
+        report["prefetch"] = fed
+        print(f"[async prefetch] the DP step (flat, fused AdamW, rows-"
+              f"touched cf_user) on {PREFETCH_STEPS} batches: losses "
+              f"{fed['direct']['losses'][0]:.5f} -> "
+              f"{fed['direct']['losses'][-1]:.5f}, bit-equal through "
+              "Prefetcher(size=2) and place_batch; launches " + ", ".join(
+                  f"{k} {v}" for k, v in fed["direct"]["launches"].items())
+              + f" both ways; step ms p50 {fed['prefetch']['step_ms_p50']:.1f}"
+              f" prefetched, {fed['direct']['step_ms_p50']:.1f} placed on "
+              f"the main thread ({card})")
+        del step
+
+        # -- (c) elastic resharding at one rank ----------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = place_batch(host[0], device=dev)
+        shape = ShapeConfig("recllm", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+        def hybrid_loss(p, b, c):
+            return recmodel.recllm_loss(cfg, p, b, c)
+
+        plan = auto_plan(cfg, mesh, shape, ParallelConfig())
+        step, state, sh = _hybrid_state(torch, cfg, n_users, mesh, plan,
+                                        tcfg, hybrid_loss, ctx, batch)
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batch)
+        before = [x.clone() for x in tree_leaves(state["params"])
+                  + tree_leaves(state["opt"])]
+        new = elastic.make_mesh_for(1)
+        check(new is not None and new.shape == {"data": 1, "model": 1},
+              f"make_mesh_for(1) on one rank: {new}")
+        plan2 = auto_plan(cfg, new, shape, ParallelConfig())
+        _, shardings_for = trainer.make_hybrid_train_step(
+            cfg, plan2, tcfg, hybrid_loss, params_shape=state["params"],
+            ctx=ctx)
+        psh, osh, _ = shardings_for(state["params"], batch)
+        after = (tree_leaves(elastic.reshard(state["params"], psh,
+                                             sh["params"]))
+                 + tree_leaves(elastic.reshard(state["opt"], osh, sh["opt"])))
+        check(len(after) == len(before) and all(
+            a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(after, before)),
+            "reshard onto make_mesh_for(1) is not the identity")
+        kept = elastic.shrink_batch(batch, 1, 1)
+        check(all(torch.equal(kept[k], batch[k]) for k in batch),
+              "shrink_batch at one rank changed the batch")
+        report["elastic"] = {"leaves": len(after), "identity": True}
+        print(f"[async elastic] one-rank {dist.get_backend()} world: "
+              f"make_mesh_for(1) {new.shape}; reshard of the hybrid step's "
+              f"RecLLM-base state ({len(after)} leaves, after one step) the "
+              "identity bit for bit; shrink_batch keeps the batch")
+    finally:
+        deterministic(torch, False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return report
+
+
 def deterministic(torch, on):
     """Deterministic algorithms on or off (uninitialised memory left
     unfilled while on, as the training phases run)."""
@@ -4209,6 +4462,8 @@ def main(argv=None) -> int:
             report["device"]["card"], report["hybrid_training"])
         report["sharded_cf"] = timed("sharded_cf", phase_sharded_cf,
                                      report["device"]["card"])
+        report["async_dp"] = timed("async_dp", phase_async_dp,
+                                   report["device"]["card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

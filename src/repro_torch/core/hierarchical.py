@@ -90,41 +90,55 @@ class DPMesh:
         return idx
 
 
-def make_mesh(shape: Dict[str, int]) -> DPMesh:
-    """The world (``torch.distributed`` initialised) laid out row-major
-    over ``shape`` (axis -> size, axes from :data:`AXES` in that order),
-    with a group for every non-empty tuple of axes.  Every rank must call
-    it: each group is created collectively, in the same order."""
+def make_mesh(shape: Dict[str, int],
+              ranks: Optional[Sequence[int]] = None) -> Optional[DPMesh]:
+    """``ranks`` (ascending global ranks; default the whole world,
+    ``torch.distributed`` initialised) laid out row-major over ``shape``
+    (axis -> size, axes from :data:`AXES` in that order), with a group for
+    every non-empty tuple of axes.  A rank takes its coordinates from its
+    index in ``ranks``; one outside them gets ``None``.  Every rank of the
+    world must call it: each group is created collectively, in the same
+    order (``runtime/elastic.make_mesh_for`` lays out the survivors)."""
     world, rank = dist.get_world_size(), dist.get_rank()
+    what = (f"the world of {world} ranks" if ranks is None
+            else f"the {len(ranks)} ranks {list(ranks)}")
+    ranks = list(range(world)) if ranks is None else list(ranks)
     names = tuple(shape)
     if tuple(a for a in AXES if a in shape) != names:
         raise ValueError(f"mesh axes {names} (want a subset of {AXES}, "
                          "in that order)")
-    if math.prod(shape.values()) != world:
-        raise ValueError(f"mesh {dict(shape)} does not cover the world of "
-                         f"{world} ranks")
+    if math.prod(shape.values()) != len(ranks):
+        raise ValueError(f"mesh {dict(shape)} does not cover {what}")
+    if ranks != sorted(set(ranks)) or not set(ranks) <= set(range(world)):
+        # ascending, so a group's rank order is the axes' flattened index
+        raise ValueError(f"ranks {ranks} are not ascending ranks of the "
+                         f"world of {world}")
     sizes = [shape[a] for a in names]
 
-    def coords_of(r):
+    def coords_of(i):
         out = {}
         for a, n in zip(reversed(names), reversed(sizes)):
-            out[a] = r % n
-            r //= n
+            out[a] = i % n
+            i //= n
         return out
 
-    every = [coords_of(r) for r in range(world)]
+    every = [coords_of(i) for i in range(len(ranks))]
     groups = {}
     for k in range(1, len(names) + 1):
         for axes in itertools.combinations(names, k):
             rest = [a for a in names if a not in axes]
             members: Dict[Tuple[int, ...], list] = {}
-            for r, c in enumerate(every):
+            for r, c in zip(ranks, every):
                 members.setdefault(tuple(c[a] for a in rest), []).append(r)
-            for ranks in members.values():
-                g = None if len(ranks) == world else dist.new_group(ranks)
-                if rank in ranks:
+            for group_ranks in members.values():
+                g = (None if len(group_ranks) == world
+                     else dist.new_group(group_ranks))
+                if rank in group_ranks:
                     groups[axes] = g
-    return DPMesh(shape=dict(shape), coords=every[rank], groups=groups)
+    if rank not in ranks:
+        return None
+    return DPMesh(shape=dict(shape), coords=every[ranks.index(rank)],
+                  groups=groups)
 
 
 def make_dp_mesh(pods: int = 1) -> DPMesh:
@@ -149,7 +163,8 @@ def init_world_of_one(device) -> DPMesh:
 
 def neighbour(mesh: DPMesh, axis: str, offset: int) -> int:
     """The global rank ``offset`` places along ``axis`` from this rank
-    (every other coordinate the same)."""
+    (every other coordinate the same), on a mesh over the first ranks of
+    the world."""
     coords = dict(mesh.coords)
     coords[axis] += offset
     if not 0 <= coords[axis] < mesh.shape[axis]:

@@ -44,8 +44,8 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
-# every module of the serving, training, sparse-embedding, MoE and rwkv6
-# slices, so the walks below cannot go vacuous
+# every module of the serving, training, sparse-embedding, MoE, rwkv6 and
+# async-DP / elastic / data slices, so the walks below cannot go vacuous
 SLICE_MODULES = (
     "cache_layout.py", "convert.py", "kernels/_build.py",
     "kernels/decode_attention.py", "kernels/flash_attention.py",
@@ -62,6 +62,8 @@ SLICE_MODULES = (
     "embeddings/__init__.py", "kernels/moe_router.py", "models/moe.py",
     "configs/moonshot_v1_16b_a3b.py", "configs/qwen3_moe_30b_a3b.py",
     "kernels/wkv6.py", "models/ssm.py", "configs/rwkv6_1_6b.py",
+    "core/async_dp.py", "runtime/straggler.py", "runtime/elastic.py",
+    "data/pipeline.py", "data/tokenizer.py",
 )
 
 
