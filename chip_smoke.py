@@ -216,7 +216,7 @@ CF head under each plan against the replicated head, and RecLLM-base
 through the hybrid step under ``embed_plans`` row and row_col
 (``phase_sharded_cf`` says what each holds).
 
-Last, ``async_dp``, the paper's sync-against-async half, on a one-rank
+Then ``async_dp``, the paper's sync-against-async half, on a one-rank
 NCCL world under deterministic algorithms: RecLLM-base at full width
 (float32) through ``core/async_dp.py``'s sync and async simulators on 16
 batches of 32 x 32 (zero staleness within 1e-6 relative of sync; the
@@ -229,6 +229,18 @@ bit-equal, launches equal; step ms p50 both ways); and
 ``runtime/elastic.py`` at one rank (``make_mesh_for(1)`` and ``reshard``
 of the hybrid step's state the identity, ``shrink_batch`` keeping the
 batch).
+
+Last, ``moe_training``: MoE training through the hybrid step on a
+one-rank NCCL world (expert parallelism and the global aux losses reduce
+to the identity at one rank): Qwen3-30B-A3B at its published widths, 4 of
+its 48 layers (52.2 GiB of resident state reckoned), bf16,
+through ``launch/train.py``'s ``run`` (6 steps of 8 x 512 tokens in 4
+micro-batches, lr 1e-4, remat off): losses and aux losses finite, no
+kernel launched (the route kernels refuse autograd); step ms p50,
+tokens/s, peak memory, ``lb_loss`` / ``z_loss`` per step and the last
+step's expert-load spread; then reduced Qwen3 and Moonlight in float32,
+the hybrid step's losses over 3 steps within 1e-5 relative of a plain
+loop's (``loss_fn``, ``backward``, ``adamw_apply``) on the same card.
 
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
@@ -4362,6 +4374,191 @@ def phase_async_dp(torch, card):
             dist.destroy_process_group()
     return report
 
+# MoE training: Qwen3-30B-A3B at published widths through the launcher,
+# its depth cut to fit one card's 80 GB: 4 layers' resident state is 52.2
+# GiB (bf16 params; float32 master, m, v and gradient sums: 18 bytes a
+# parameter), printed by the phase beside the measured peak
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen3-moe-30b-a3b", 4
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_MICRO = 6, 8, 512, 4
+MOE_TRAIN_LR = 1e-4
+# the reduced archs' hybrid step against a plain loop on the card
+MOE_PARITY_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
+MOE_PARITY_STEPS, MOE_PARITY_BATCH, MOE_PARITY_SEQ = 3, 8, 32
+MOE_PARITY_RTOL = 1e-5
+
+
+def phase_moe_training(torch, card):
+    """MoE training through the hybrid step on a one-rank NCCL world (tp =
+    dp = 1: expert parallelism and the dp-global aux losses reduce to the
+    identity; the CPU tests hold their multi-rank form on gloo).  (a)
+    Qwen3-30B-A3B at its published widths (d_model 2048, 32 q / 4 kv heads
+    of 128, 128 experts of d_ff 768, top 8, vocab 151,936, untied), its
+    first ``MOE_TRAIN_LAYERS`` layers, bf16, through ``launch/train.py``'s
+    ``run``: 8 x 512 tokens in 4 micro-batches, 6 steps, lr 1e-4, remat
+    off: losses finite, no kernel launched (the route kernels refuse
+    autograd; training runs their plain version); step ms p50, tokens/s,
+    peak memory, ``lb_loss`` / ``z_loss`` per step and the spread of the
+    last step's expert loads.  (b) reduced Qwen3 and Moonlight in float32:
+    the hybrid step's losses over 3 steps against a plain loop on the same
+    device (``loss_fn``, ``backward``, ``adamw_apply``, no plan), within
+    ``MOE_PARITY_RTOL`` relative."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.config import (ParallelConfig, ShapeConfig,
+                                    TrainConfig, get_arch, reduced)
+    from repro_torch.core import hierarchical, sharding
+    from repro_torch.core.hybrid import auto_plan
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import Tracer
+    from repro_torch.optimizer import adamw, schedule
+    from repro_torch.runtime import trainer
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda")
+    report = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="moe_train_")
+    try:
+        # -- (a) Qwen3-30B-A3B at published widths --------------------------
+        full = get_arch(MOE_TRAIN_ARCH)
+        layers = MOE_TRAIN_LAYERS
+        cfg = dataclasses.replace(full, num_layers=layers)
+        n_params = cfg.num_params()
+        print(f"[moe_training] {MOE_TRAIN_ARCH} at published widths "
+              f"(d_model {cfg.d_model}, {cfg.num_heads} q / "
+              f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, "
+              f"{cfg.num_experts} experts of d_ff {cfg.d_ff} top "
+              f"{cfg.experts_per_token}, vocab {cfg.vocab_size:,}), {layers} "
+              f"of {full.num_layers} layers: {n_params:,} parameters, "
+              f"resident state reckoned {n_params * 18 / 2**30:.1f} GiB")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tracer = Tracer()
+        reset_launches()
+        res, plan = train_launcher.run(train_launcher.parse_args([
+            "--arch", MOE_TRAIN_ARCH, "--layers", str(layers),
+            "--steps", str(MOE_TRAIN_STEPS), "--batch", str(MOE_TRAIN_BATCH),
+            "--seq", str(MOE_TRAIN_SEQ), "--pp-micro", str(MOE_TRAIN_MICRO),
+            "--lr", str(MOE_TRAIN_LR), "--remat", "off",
+            "--ckpt-dir", os.path.join(tmp, "qwen3")]), tracer=tracer)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        check(len(res.losses) == MOE_TRAIN_STEPS and all(
+            math.isfinite(x) for x in res.losses),
+            f"{MOE_TRAIN_ARCH}: losses {res.losses}")
+        check(not any(launches.values()),
+              f"{MOE_TRAIN_ARCH} training launched kernels: "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        check(len(res.aux) == MOE_TRAIN_STEPS,
+              f"{MOE_TRAIN_ARCH}: {len(res.aux)} steps' aux")
+        ms = sorted(1e3 * e["dur"] for e in tracer.events
+                    if e["name"] == "train_step")
+        p50 = float(np.median(ms))
+        lb = [a["lb_loss"] for a in res.aux]
+        z = [a["z_loss"] for a in res.aux]
+        check(all(math.isfinite(x) for x in lb + z),
+              f"aux losses lb {lb} z {z}")
+        load = np.asarray(res.aux[-1]["expert_load"])
+        spread = {"max_over_mean": float(load.max() / load.mean()),
+                  "min_over_mean": float(load.min() / load.mean()),
+                  "cv": float(load.std() / load.mean())}
+        report["qwen3"] = {
+            "layers": layers, "params": n_params, "losses": res.losses,
+            "step_ms": ms, "step_ms_p50": p50,
+            "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (p50 / 1e3),
+            "peak_bytes": peak, "lb_loss": lb, "z_loss": z,
+            "load_spread": spread, "launches": launches,
+            "notes": list(plan.notes), "remat": plan.remat}
+        print(f"[moe_training] {MOE_TRAIN_ARCH} {layers} layers {cfg.dtype}, "
+              f"batch {MOE_TRAIN_BATCH} x seq {MOE_TRAIN_SEQ} in "
+              f"{plan.pcfg.microbatches} micro-batches, lr "
+              f"{MOE_TRAIN_LR:g}, remat {plan.remat}: step ms p50 "
+              f"{p50:.1f} (min {ms[0]:.1f}, max {ms[-1]:.1f}), "
+              f"{report['qwen3']['tokens_per_s']:.0f} tokens/s; peak "
+              f"{peak / 2**30:.2f} GiB; losses "
+              f"{[round(x, 4) for x in res.losses]}; lb_loss "
+              f"{[round(x, 4) for x in lb]}; z_loss "
+              f"{[round(x, 4) for x in z]} (summed over {layers} layers); "
+              f"last step's expert loads (all {cfg.experts_per_token} slots"
+              f", {layers} layers): max/mean {spread['max_over_mean']:.3f}, "
+              f"min/mean {spread['min_over_mean']:.3f}, cv "
+              f"{spread['cv']:.3f}; no kernel launched ({card})")
+        del res
+
+        # -- (b) reduced archs: the hybrid step against a plain loop ------
+        gc.collect()
+        torch.cuda.empty_cache()
+        hierarchical.init_world_of_one(dev)
+        mesh = make_host_mesh()
+        tcfg = TrainConfig(steps=20, learning_rate=1e-3, warmup_steps=1,
+                           grad_clip=1.0, checkpoint_every=0)
+        report["parity"] = {}
+        for arch in MOE_PARITY_ARCHS:
+            rcfg = dataclasses.replace(reduced(get_arch(arch)),
+                                       dtype="float32")
+            rng = np.random.default_rng(3)
+            batches = [{
+                "tokens": rng.integers(3, rcfg.vocab_size, (
+                    MOE_PARITY_BATCH, MOE_PARITY_SEQ)),
+                "targets": rng.integers(3, rcfg.vocab_size, (
+                    MOE_PARITY_BATCH, MOE_PARITY_SEQ))}
+                for _ in range(MOE_PARITY_STEPS)]
+            batches = [{k: torch.from_numpy(v.astype(np.int32)).to(dev)
+                        for k, v in b.items()} for b in batches]
+            p0 = convert.init_params(
+                rcfg, torch.Generator(device=dev).manual_seed(0), dev)
+            plain = tree_map(torch.clone, p0)
+            plan = auto_plan(rcfg, mesh, ShapeConfig(
+                "moe", MOE_PARITY_SEQ, MOE_PARITY_BATCH, "train"),
+                ParallelConfig())
+            step, shardings_for = trainer.make_hybrid_train_step(
+                rcfg, plan, tcfg, params_shape=p0)
+            psh, _, _ = shardings_for(p0, batches[0])
+            params = sharding.device_put(p0, psh)
+            opt = trainer.init_hybrid_opt(rcfg, plan, params, p0)
+            hybrid = []
+            for b in batches:
+                params, opt, m = step(params, opt, b)
+                hybrid.append(float(m["loss"]))
+            popt = adamw.init_opt_state(plain)
+            ctx = tf.ModelCtx(flash_vjp=True)       # the step's at tp 1
+            loop = []
+            for b in batches:
+                leaves = tree_map(lambda x: x.detach().requires_grad_(),
+                                  plain)
+                total, _ = tf.loss_fn(rcfg, leaves, b, ctx)
+                total.backward()
+                loop.append(float(total.detach()))
+                lr = schedule.warmup_cosine(popt["step"], tcfg.learning_rate,
+                                            tcfg.warmup_steps, tcfg.steps)
+                plain, popt = adamw.adamw_apply(
+                    plain, tree_map(lambda x: x.grad, leaves), popt, lr,
+                    tcfg)
+            worst = max(abs(a - b) / abs(b) for a, b in zip(hybrid, loop))
+            check(worst <= MOE_PARITY_RTOL,
+                  f"{arch} reduced: hybrid {hybrid} against the plain loop "
+                  f"{loop}")
+            report["parity"][arch] = {"hybrid": hybrid, "loop": loop,
+                                      "max_rel": worst}
+            print(f"[moe_training] {arch} reduced (float32, "
+                  f"{rcfg.num_experts} experts top "
+                  f"{rcfg.experts_per_token}), {MOE_PARITY_STEPS} steps of "
+                  f"{MOE_PARITY_BATCH} x {MOE_PARITY_SEQ}: hybrid losses "
+                  f"{[round(x, 6) for x in hybrid]} against the plain loop's "
+                  f"within {worst:.2e} relative (limit {MOE_PARITY_RTOL:g})")
+            del params, opt, plain, popt, step
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
 
 def deterministic(torch, on):
     """Deterministic algorithms on or off (uninitialised memory left
@@ -4464,6 +4661,8 @@ def main(argv=None) -> int:
                                      report["device"]["card"])
         report["async_dp"] = timed("async_dp", phase_async_dp,
                                    report["device"]["card"])
+        report["moe_training"] = timed("moe_training", phase_moe_training,
+                                       report["device"]["card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

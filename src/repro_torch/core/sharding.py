@@ -12,8 +12,8 @@ tuple of axis names, read as JAX reads a ``PartitionSpec`` (a tuple of one
 name is that name; :func:`P` builds one).  Every sharded dim is
 divisibility-guarded: a dim that does not divide over its axes falls back
 to replication.  The rules of every family are copied (pure logic); the
-hybrid train step (``runtime/trainer.py``) runs the dense uniform family
-only.  :func:`pp_stage_specs` lays out the pipelined step's stage stack.
+hybrid train step (``runtime/trainer.py``) runs the uniform family, dense
+and MoE.  :func:`pp_stage_specs` lays out the pipelined step's stage stack.
 ``cache_specs`` (serving) is not ported yet (``ROADMAP.md``).
 
 Embedding tables route through the sparse-embedding subsystem: top-level
@@ -48,7 +48,15 @@ forward (identity <-> all-reduce, all-gather <-> reduce-scatter):
 * a table sharded by an embed plan is looked up by the sharded lookup
   body (a masked local gather all-reduced over its row axis, ids
   all-gathered and an all-to-all over its column axis), whose result
-  enters the vocab-parallel work through the identity above.
+  enters the vocab-parallel work through the identity above;
+* MoE experts lie over ``model`` (expert parallelism, JAX's
+  ``expert_stack``): the FFN branch enters and leaves as a Megatron MLP
+  does, each rank routing every token with the replicated router (its
+  gradient summed over ``model``) and running its ``E / tp`` experts;
+  under the FSDP-expert rule their ``d_ff`` also lies over the dp axes,
+  all-gathered at use.  The Switch aux losses are the global batch's
+  (``batch_mean``, ``mean``), their gradients counted once over
+  ``model`` (``once``).
 """
 from __future__ import annotations
 
@@ -64,6 +72,11 @@ from repro_torch.core import hierarchical as hier
 from repro_torch.core.hierarchical import DPMesh
 from repro_torch.models import layers
 from repro_torch.tree import tree_map
+
+
+# a device's expert bytes (bf16, after EP) above which the expert weights'
+# d_ff dim is also sharded over the dp axes (ShardingPlan.fsdp_experts)
+FSDP_EXPERT_BYTES = 2e9
 
 
 def P(*dims) -> Tuple:
@@ -132,6 +145,21 @@ class ShardingPlan:
 
     # -- parameters ---------------------------------------------------------
 
+    def fsdp_experts(self, cfg: ArchConfig) -> bool:
+        """FSDP for expert weights: when a device's expert bytes after EP
+        sharding are still above :data:`FSDP_EXPERT_BYTES`, the ``d_ff``
+        dim is sharded over the dp axes too (the weights all-gathered at
+        use, their gradients reduce-scattered back)."""
+        M = self.tp_axis
+        if not cfg.is_moe or M is None:
+            return False
+        mats = 3 if cfg.mlp_gated else 2
+        n_moe_layers = sum(1 for i in range(cfg.num_layers)
+                           if i % cfg.moe_period == cfg.moe_period - 1)
+        expert_bytes = (n_moe_layers * cfg.num_experts * mats * cfg.d_model
+                        * cfg.d_ff * 2 / max(self.mesh.shape[M], 1))
+        return expert_bytes > FSDP_EXPERT_BYTES
+
     def param_specs(self, cfg: ArchConfig, params_shape) -> Any:
         """Tree of specs matching a params tree (of tensors, or anything
         with ``.shape``)."""
@@ -139,19 +167,7 @@ class ShardingPlan:
         q_ok = M is not None and cfg.num_heads % self.mesh.shape[M] == 0
         kv_ok = M is not None and cfg.num_kv_heads % self.mesh.shape[M] == 0
 
-        # FSDP for expert weights: when the per-device expert bytes after
-        # EP sharding are still large, shard the d_ff dim over the dp axes
-        # too (weights all-gathered at use).
-        fsdp_experts = False
-        if cfg.is_moe and M is not None:
-            mats = 3 if cfg.mlp_gated else 2
-            n_moe_layers = sum(
-                1 for i in range(cfg.num_layers)
-                if i % cfg.moe_period == cfg.moe_period - 1)
-            expert_bytes = (n_moe_layers * cfg.num_experts * mats
-                            * cfg.d_model * cfg.d_ff * 2
-                            / max(self.mesh.shape[M], 1))
-            fsdp_experts = expert_bytes > 2e9
+        fsdp_experts = self.fsdp_experts(cfg)
 
         def rule(names, leaf) -> Tuple:
             last = names[-1]
@@ -452,6 +468,19 @@ class _AllToAll(torch.autograd.Function):
         return hier.all_to_all(g, *ctx.where), None, None, None, None
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward, the gradient times ``s`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
 class _VocabNLL(torch.autograd.Function):
     """Per-position NLL over vocab-sharded logits: the row max and the sum
     of exps all-reduced over ``model``, the target's logit from the rank
@@ -501,7 +530,12 @@ class TPHooks:
 
     ``tables`` maps each table of ``plan.embed_plans`` to the plan it is
     looked up by (``embeddings.lookup.embed_table_plans``), for the
-    model's ``tp_embed_lookup``/``tp_embed_rows``."""
+    model's ``tp_embed_lookup``/``tp_embed_rows``.
+
+    For an MoE arch, ``experts`` is this rank's expert range under EP
+    (``num_experts`` must split over ``model``: JAX's guard replicates
+    experts that do not, the port refuses them), and ``fsdp_axes`` the dp
+    axes the experts' ``d_ff`` lies over under the FSDP-expert rule."""
 
     def __init__(self, plan: ShardingPlan, cfg: ArchConfig, *, seq_len: int,
                  rows: int, tables: Optional[Dict[str, Any]] = None):
@@ -517,9 +551,19 @@ class TPHooks:
         self.rep = 1 if rows % n_b == 0 else n_b
         self.vocab_off, self.kv_cols = 0, None
         self.tables = dict(tables or {})
+        # EP: this rank's experts [lo, hi) (None: all of them)
+        self.experts = None
+        # the FSDP-expert rule: the dp axes the experts' d_ff lies over
+        # (empty where the guard replicates it, or at one dp rank)
+        dp_n = mesh.size(plan.dp_axes)
+        self.fsdp_axes = (tuple(plan.dp_axes) if plan.fsdp_experts(cfg)
+                          and dp_n > 1 and cfg.d_ff % dp_n == 0 else ())
         if self.tp > 1:
             self._check(cfg)
             self.vocab_off = self.rank * cfg.padded_vocab // n
+            if cfg.is_moe:
+                e = cfg.num_experts // n
+                self.experts = (self.rank * e, (self.rank + 1) * e)
             hq = cfg.num_heads // n
             if cfg.num_kv_heads % n:            # GQA rule: kv replicated
                 g = cfg.num_heads // cfg.num_kv_heads
@@ -531,9 +575,12 @@ class TPHooks:
         n = self.tp
         hq = cfg.num_heads // n
         g = cfg.num_heads // cfg.num_kv_heads
+        # an MoE arch's d_ff is the per-expert width, which EP leaves whole
+        dense_ffn = not cfg.is_moe or cfg.moe_period > 1
         bad = [what for what, ok in (
             ("num_heads", cfg.num_heads % n == 0),
-            ("d_ff", cfg.d_ff % n == 0),
+            ("d_ff", not dense_ffn or cfg.d_ff % n == 0),
+            ("num_experts", not cfg.is_moe or cfg.num_experts % n == 0),
             ("padded_vocab", cfg.padded_vocab % n == 0),
             ("the local q heads' kv grouping",
              cfg.num_kv_heads % n == 0 or hq % g == 0 or g % hq == 0),
@@ -605,6 +652,36 @@ class TPHooks:
             return layers._nll(logits, targets)
         return _VocabNLL.apply(logits, targets, self.vocab_off, self.mesh,
                                self.axis)
+
+    # -- MoE: expert parallelism over ``model`` -------------------------------
+
+    def expert_weight(self, w, dim: int):
+        """An expert leaf as this rank uses it: under the FSDP-expert rule
+        its ``d_ff`` dim ``dim`` all-gathered over the dp axes, its
+        gradient reduce-scattered back onto the shard (summed over the dp
+        ranks there)."""
+        if not self.fsdp_axes:
+            return w
+        return _Gather.apply(w, self.mesh, self.fsdp_axes, dim)
+
+    def batch_mean(self, x):
+        """The mean over the batch axes of a per-rank mean ``x`` taken
+        over equal row counts, without a gradient (the top-1 shares of
+        the Switch loss: one-hots)."""
+        x = x.detach()
+        if self.rep > 1:
+            return x
+        return (hier.all_reduce_sum(x, self.mesh, self.batch_axes)
+                / self.mesh.size(self.batch_axes))
+
+    def once(self, x):
+        """A loss term that every ``model`` rank computes whole from the
+        same tokens (the router's aux losses under EP): its value kept,
+        its gradient divided by tp, so that the sums over ``model`` of
+        ``enter``'s and ``copy``'s backward count it once."""
+        if self.tp == 1:
+            return x
+        return _ScaleGrad.apply(x, 1.0 / self.tp)
 
     # -- the loss -------------------------------------------------------------
 

@@ -1,9 +1,11 @@
-"""Training launcher: any dense uniform --arch at any scale on the world
-``torchrun`` gives, or on a world of one (port of ``repro/launch/train.py``).
+"""Training launcher: any uniform --arch (dense or MoE) at any scale on
+the world ``torchrun`` gives, or on a world of one (port of
+``repro/launch/train.py``).
 
 The step is ``runtime.trainer.make_hybrid_train_step`` under the plan
 ``core.hybrid.auto_plan`` picks for the ``(data, model)`` mesh: Megatron
-TP over ``model`` (or ``dp_heavy``), DP over ``data``, ZeRO-1/2, remat,
+TP over ``model`` (or ``dp_heavy``; the MoE archs' experts over ``model``,
+expert parallelism), DP over ``data``, ZeRO-1/2, remat,
 ``--pp-micro`` micro-batches of gradient accumulation, checkpoints every
 ``max(steps // 4, 10)`` steps into ``--ckpt-dir`` and ``--resume`` from
 the latest.  NCCL on GPUs, gloo on CPUs; runs on the GPU unless
@@ -13,6 +15,8 @@ the latest.  NCCL on GPUs, gloo on CPUs; runs on the GPU unless
       --reduced --steps 50 --batch 16 --seq 64 --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch olmo-1b --data 2 --model 2 --steps 20 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3-moe-30b-a3b --layers 4 --steps 6 --batch 8 --seq 512
 
 ``--pp-stages N`` (N > 1) switches to the pipelined DP x TP x stage path
 (``trainer.make_pp_train_step``) on a ``(data, model, stage)`` mesh: the
@@ -28,8 +32,11 @@ carry the bounds, which ``--resume`` restores:
       --steps 10 --batch 16 --seq 512
 
 ``--remat on|off`` overrides the hybrid plan's remat choice (default
-``auto``); ``--host-devices`` (a JAX host-platform setting) has no
-meaning here and is refused.
+``auto``); ``--layers N`` keeps the arch's first N layers (the JAX
+launcher has no such flag); ``--host-devices`` (a JAX host-platform
+setting) has no meaning here and is refused.  An MoE arch with
+``--pp-stages > 1`` raises, as in JAX: the pipelined path drops the MoE
+aux losses.
 """
 import argparse
 import dataclasses
@@ -45,6 +52,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size config (CPU-friendly, float32)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the arch's first N layers at its published "
+                         "widths (a depth cut to fit the cards; 0: all)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=64)
@@ -126,6 +136,8 @@ def run(args: argparse.Namespace, tracer=None, pipelined=None):
         cfg = get_arch(args.arch)
         if args.reduced:
             cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+        if args.layers:
+            cfg = dataclasses.replace(cfg, num_layers=args.layers)
         mesh = make_host_mesh(data=args.data, model=args.model,
                               stage=pp if pipelined else 0)
         shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -156,6 +168,10 @@ def run(args: argparse.Namespace, tracer=None, pipelined=None):
             print(f"done: {res.steps_run} steps, host throughput "
                   f"{res.throughput:.1f} samples/s, final loss "
                   f"{res.losses[-1]:.4f}")
+            if res.aux:         # MoE: the last step's Switch aux losses
+                print(f"moe aux: lb_loss {res.aux[-1]['lb_loss']:.4f}, "
+                      f"z_loss {res.aux[-1]['z_loss']:.4f} (summed over "
+                      f"{cfg.num_layers} layers)")
             if args.trace_out:
                 nev = write_trace(args.trace_out, tracer)
                 print(f"trace: {nev} events -> {args.trace_out} "

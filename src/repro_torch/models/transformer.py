@@ -22,7 +22,8 @@ recomputes each layer in the backward (``torch.utils.checkpoint``, the JAX
 ``jax.checkpoint`` on the layer body), and ``ModelCtx.tp``, the hooks of a
 sharding plan (:class:`repro_torch.core.sharding.TPHooks`), runs the
 forward and the loss under Megatron tensor parallelism, sequence
-parallelism and the global loss mean of the hybrid train step.
+parallelism, expert parallelism (the MoE archs) and the global loss mean
+of the hybrid train step.
 
 The pipeline's stage functions (:func:`pp_partition_params`,
 :func:`make_stage_fn`, :func:`make_last_fn` and the slicing around them)
@@ -216,14 +217,10 @@ def ffn_apply(cfg: ArchConfig, p: Dict, x, ctx: ModelCtx, live=None):
     tp = ctx.tp
     h = layers.apply_norm(cfg, p["norm"] if tp is None else tp.norm(p["norm"]),
                           x)
-    if "moe" in p:
-        if tp is not None:
-            raise NotImplementedError(
-                "MoE under a sharding plan (expert parallelism) is not "
-                "ported yet (ROADMAP.md)")
+    if "moe" in p:                     # under tp: expert parallelism
         return moe.moe_ffn(cfg, p["moe"], h, group_size=ctx.moe_group,
                            capacity_factor=ctx.moe_capacity_factor,
-                           use_kernel=ctx.use_kernels, live=live)
+                           use_kernel=ctx.use_kernels, live=live, tp=tp)
     if tp is None:
         return layers.apply_mlp(cfg, p["mlp"], h), None
     return tp.exit(layers.apply_mlp(cfg, p["mlp"], tp.enter(h))), None

@@ -44,9 +44,15 @@ disjoint per ``data`` rank and its gradient already holds every rank's
 batch (the all-to-all's backward brought it), so the ZeRO-2 sum leaves
 ``data`` out for it.
 
+The hybrid step trains the MoE archs too: experts over ``model``
+(expert parallelism: each rank runs its ``E / tp`` experts and the
+partial outputs are summed over ``model``), the router replicated, the
+Switch aux losses over the global batch, and under the FSDP-expert rule
+the experts' ``d_ff`` over the dp axes, gathered at use
+(``models/moe.py``, ``core/sharding.TPHooks``).
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-under the hybrid step, MoE (expert parallelism) and the rwkv/mamba
-families.
+under the hybrid step, the rwkv/mamba families.
 """
 from __future__ import annotations
 
@@ -149,7 +155,10 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
     is the global batch, of which the step takes this rank's rows of each
     micro-batch.  ``metrics`` holds the global ``loss`` (the mean over the
     micro-batches), ``lr`` and ``grad_norm`` (the whole model's, before
-    the clip).  ``shardings_for(params_shape, batch_shape)`` gives the
+    the clip); for an MoE arch also ``aux``, the loss's aux (``ce``,
+    ``lb_loss``, ``z_loss``, ``expert_load``) of the global batch, the
+    mean over the micro-batches, as JAX's ``_grads`` returns it.
+    ``shardings_for(params_shape, batch_shape)`` gives the
     ``NamedSharding`` trees of params, opt and batch (JAX's
     ``shardings_for``).  The step updates the ``params`` and ``opt``
     shards it is given in place and returns them (JAX's step donates its
@@ -174,11 +183,11 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
     global loss's."""
     sh = plan.sharding
     mesh = sh.mesh
-    if tf.family(cfg) != "uniform" or cfg.is_moe:
+    if tf.family(cfg) != "uniform":
         raise NotImplementedError(
-            f"{cfg.name}: the hybrid step trains the dense uniform family; "
-            "MoE (expert parallelism, the FSDP expert rule) and the "
-            "rwkv/mamba TP rules are not ported yet (ROADMAP.md)")
+            f"{cfg.name}: the hybrid step trains the uniform family (dense "
+            "and MoE); the rwkv/mamba TP rules are not ported yet "
+            "(ROADMAP.md)")
     M = sh.tp_axis
     tp_n = mesh.shape[M] if M else 1
     base = dataclasses.replace(ctx or ModelCtx(), remat=plan.remat,
@@ -229,13 +238,20 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
             p.shape, dtype=torch.float32 if accum > 1 else p.dtype,
             device=p.device), params)
         leaves = _grad_leaves(params, grads, add=accum > 1)
-        loss = 0.0
+        loss, aux_sum = 0.0, None
         for j in range(accum):
             used = (sharding_lib.gather_weights(leaves, pspecs, mesh, M)
                     if sh.dp_heavy and M else leaves)
-            total, _ = loss_fn(used, rows(batch, j, mb, hooks), c)
+            total, aux = loss_fn(used, rows(batch, j, mb, hooks), c)
             torch.autograd.backward(total, inputs=_tensors(leaves))
             loss = loss + hooks.total(total)
+            if cfg.is_moe:      # the global values from each rank's share
+                aux = {k: hooks.total(v) for k, v in aux.items()}
+                aux_sum = aux if aux_sum is None else {
+                    k: aux_sum[k] + v for k, v in aux.items()}
+        metrics = {}
+        if aux_sum is not None:
+            metrics["aux"] = {k: v / accum for k, v in aux_sum.items()}
         with torch.no_grad():
             if accum > 1:
                 tree_map(lambda g: g.div_(accum), grads)
@@ -252,7 +268,7 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
                                            donate=True, grad_scale=scale)
             new_params = adamw.zero_params(views, zdims, mesh, dp, params)
         return new_params, new_opt, {"loss": loss, "lr": lr,
-                                     "grad_norm": norm}
+                                     "grad_norm": norm, **metrics}
 
     return step, shardings_for
 
@@ -942,6 +958,8 @@ class TrainResult:
     final_step: int
     losses: list
     throughput: float               # samples/sec (host wall clock)
+    # per step, the hybrid step's ``metrics["aux"]`` (MoE) as floats/lists
+    aux: list = dataclasses.field(default_factory=list)
 
 
 def train_loop(state: Dict[str, Any], batches: Iterator, step_fn: Callable,
@@ -979,7 +997,7 @@ def train_loop(state: Dict[str, Any], batches: Iterator, step_fn: Callable,
     ``step``/``loss``), ``rebalance.probe`` spans around each rebalance
     hook, and ``checkpoint`` spans, as the JAX loop's."""
     tr = or_null(tracer)
-    losses = []
+    losses, auxs = [], []
     t0 = time.perf_counter()
     step = start_step
     n = 0
@@ -1003,6 +1021,9 @@ def train_loop(state: Dict[str, Any], batches: Iterator, step_fn: Callable,
                 state["params"], state["opt"], metrics = step_fn(
                     state["params"], state["opt"], batch)
             losses.append(float(metrics["loss"]))
+            if "aux" in metrics:
+                auxs.append({k: v.tolist() for k, v in
+                             metrics["aux"].items()})
             if tr.enabled:
                 sp.args["loss"] = losses[-1]
         step += 1
@@ -1023,7 +1044,7 @@ def train_loop(state: Dict[str, Any], batches: Iterator, step_fn: Callable,
     dt = time.perf_counter() - t0
     tput = samples_per_batch * n / dt if dt > 0 else 0.0
     return TrainResult(steps_run=n, final_step=step, losses=losses,
-                       throughput=tput)
+                       throughput=tput, aux=auxs)
 
 
 def resume_or_init(init_state: Dict[str, Any], tcfg: TrainConfig,

@@ -64,6 +64,7 @@ SLICE_MODULES = (
     "kernels/wkv6.py", "models/ssm.py", "configs/rwkv6_1_6b.py",
     "core/async_dp.py", "runtime/straggler.py", "runtime/elastic.py",
     "data/pipeline.py", "data/tokenizer.py",
+    "core/sharding.py", "core/hybrid.py", "launch/train.py",
 )
 
 
