@@ -242,6 +242,18 @@ step's expert-load spread; then reduced Qwen3 and Moonlight in float32,
 the hybrid step's losses over 3 steps within 1e-5 relative of a plain
 loop's (``loss_fn``, ``backward``, ``adamw_apply``) on the same card.
 
+After it, ``rwkv6_training``: rwkv6-1.6b through the hybrid step on a
+one-rank NCCL world: at its published widths (24 layers, d_model 2048, 32
+heads of 64, d_ff 7168, vocab 65,536, untied; 1,584,091,136 parameters),
+bf16, through ``launch/train.py``'s ``run`` (6 steps of 8 x 512 tokens in
+4 micro-batches, lr 1e-4), remat off and then on: losses finite and the
+last below the first, the peak under the card's memory, no kernel
+launched (the WKV kernel refuses autograd; training runs the plain
+chunked recurrence, as JAX's step does); parameters, the reckoned
+resident state, peak, step ms p50, tokens/s and losses printed; then
+reduced rwkv6 in float32, the hybrid step's losses over 3 steps within
+1e-6 relative of a plain loop's on the same card.
+
 It then prints the ``kernels`` JSON line (time, plain time, bound, library
 time and main-path launches per kernel) and, last, the device JSON line.
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -4560,6 +4572,241 @@ def phase_moe_training(torch, card):
     return report
 
 
+RWKV_TRAIN_ARCH = "rwkv6-1.6b"
+RWKV_TRAIN_STEPS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 6, 8, 512
+RWKV_TRAIN_MICRO, RWKV_TRAIN_LR = 4, 1e-4
+RWKV_PARITY_STEPS, RWKV_PARITY_BATCH, RWKV_PARITY_SEQ = 3, 8, 64
+RWKV_PARITY_RTOL = 1e-6
+
+
+def rwkv6_layer_split(torch, cfg, card):
+    """One rwkv6 layer at ``cfg``'s widths on one micro-batch of the
+    training phase, forward and backward: the whole layer (remat off and
+    on) and its chunked WKV alone (float32 r, k, v, w of the layer's
+    shape).  For each: the wall ms (median of 3, the device synchronised
+    around each), and from one profiled run the CUDA kernels launched and
+    the device's busy ms (the union of their intervals)."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda")
+    one = dataclasses.replace(cfg, num_layers=1)
+    blocks = convert.init_params(
+        one, torch.Generator(device=dev).manual_seed(0), dev)["blocks"]
+    B, T = RWKV_TRAIN_BATCH // RWKV_TRAIN_MICRO, RWKV_TRAIN_SEQ
+    H, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x0 = torch.randn((B, T, cfg.d_model), generator=gen, device=dev).to(
+        getattr(torch, cfg.dtype))
+    rkv = [torch.randn((B, T, H, hs), generator=gen, device=dev)
+           for _ in range(3)]
+    w0 = 0.9 + 0.1 * torch.rand((B, T, H, hs), generator=gen, device=dev)
+    u0 = torch.zeros((H, hs), device=dev)
+
+    def layer(remat):
+        def run():
+            params = {"blocks": tree_map(
+                lambda t: t.detach().requires_grad_(), blocks)}
+            x = x0.detach().requires_grad_()
+            out = tf._rwkv_forward(one, params, x, tf.ModelCtx(remat=remat))
+            out.float().square().mean().backward()
+        return run
+
+    def wkv():
+        r, k, v, w, u = (t.detach().requires_grad_()
+                         for t in (*rkv, w0, u0))
+        o, S = ssm._wkv6_chunked(r, k, v, w, u)
+        (o.square().mean() + S.square().mean()).backward()
+
+    out = {}
+    for name, fn in (("layer_remat_off", layer(False)),
+                     ("layer_remat_on", layer(True)), ("wkv", wkv)):
+        fn()                                    # warm
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        ev = _device_events(torch, fn)
+        out[name] = {"wall_ms": float(np.median(walls)), "walls": walls,
+                     "kernels": len(ev),
+                     "busy_ms": _busy_ms([(a, b) for _, a, b in ev])}
+        print(f"[rwkv6_training] split, {name} ({B} x {T} tokens, forward "
+              f"+ backward): wall ms {out[name]['wall_ms']:.1f}, "
+              f"{len(ev)} CUDA kernels, device busy "
+              f"{out[name]['busy_ms']:.1f} ms ({card})")
+    return out
+
+
+def phase_rwkv6_training(torch, card):
+    """rwkv6 training through the hybrid step on a one-rank NCCL world (tp
+    = dp = 1: the time and channel mixes' collectives reduce to the
+    identity; the CPU tests hold their multi-rank form on gloo).  (a)
+    rwkv6-1.6b at its published widths, bf16, through ``launch/train.py``'s
+    ``run``: 8 x 512 tokens in 4 micro-batches, 6 steps, lr 1e-4, remat off
+    and then on: losses finite and falling, the peak under the card's
+    memory, no kernel launched (the WKV runs its plain chunked form, which
+    has a backward); step ms p50, tokens/s and peak memory.  (b) reduced
+    rwkv6 in float32: the hybrid step's losses over 3 steps against a
+    plain loop on the same device (``loss_fn``, ``backward``,
+    ``adamw_apply``, no plan), within ``RWKV_PARITY_RTOL`` relative."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.config import (ParallelConfig, ShapeConfig,
+                                    TrainConfig, get_arch, reduced)
+    from repro_torch.core import hierarchical, sharding
+    from repro_torch.core.hybrid import auto_plan
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import Tracer
+    from repro_torch.optimizer import adamw, schedule
+    from repro_torch.runtime import trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    report = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="rwkv_train_")
+    try:
+        # -- (a) rwkv6-1.6b at published widths, remat off then on -------
+        cfg = get_arch(RWKV_TRAIN_ARCH)
+        n_params = sum(x.numel() for x in tree_leaves(convert.init_params(
+            cfg, torch.Generator(device=dev), "meta")))   # shapes only
+        hbm = torch.cuda.get_device_properties(0).total_memory
+        print(f"[rwkv6_training] {RWKV_TRAIN_ARCH} at published widths "
+              f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.d_model // cfg.rwkv_head_size} heads of "
+              f"{cfg.rwkv_head_size}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size:,}): {n_params:,} parameters, resident "
+              f"state reckoned {n_params * 18 / 2**30:.2f} GiB; the card "
+              f"holds {hbm / 2**30:.2f} GiB")
+        runs = {}
+        for remat in ("off", "on"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tracer = Tracer()
+            reset_launches()
+            res, plan = train_launcher.run(train_launcher.parse_args([
+                "--arch", RWKV_TRAIN_ARCH, "--steps", str(RWKV_TRAIN_STEPS),
+                "--batch", str(RWKV_TRAIN_BATCH),
+                "--seq", str(RWKV_TRAIN_SEQ),
+                "--pp-micro", str(RWKV_TRAIN_MICRO),
+                "--lr", str(RWKV_TRAIN_LR), "--remat", remat,
+                "--ckpt-dir", os.path.join(tmp, remat)]), tracer=tracer)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            losses = res.losses
+            check(len(losses) == RWKV_TRAIN_STEPS and all(
+                math.isfinite(x) for x in losses),
+                f"{RWKV_TRAIN_ARCH} remat {remat}: losses {losses}")
+            check(losses[-1] < losses[0],
+                  f"{RWKV_TRAIN_ARCH} remat {remat}: the loss did not fall "
+                  f"({losses})")
+            check(peak < hbm, f"{RWKV_TRAIN_ARCH} remat {remat}: peak "
+                  f"{peak} of {hbm} bytes")
+            check(not any(launches.values()),
+                  f"{RWKV_TRAIN_ARCH} training launched kernels: "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            ms = sorted(1e3 * e["dur"] for e in tracer.events
+                        if e["name"] == "train_step")
+            p50 = float(np.median(ms))
+            runs[remat] = {
+                "losses": losses, "step_ms": ms, "step_ms_p50": p50,
+                "tokens_per_s": RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ
+                / (p50 / 1e3), "peak_bytes": peak, "launches": launches,
+                "notes": list(plan.notes), "remat": plan.remat}
+            print(f"[rwkv6_training] {RWKV_TRAIN_ARCH} {cfg.dtype}, batch "
+                  f"{RWKV_TRAIN_BATCH} x seq {RWKV_TRAIN_SEQ} in "
+                  f"{plan.pcfg.microbatches} micro-batches, lr "
+                  f"{RWKV_TRAIN_LR:g}, remat {remat}: step ms p50 "
+                  f"{p50:.1f} (min {ms[0]:.1f}, max {ms[-1]:.1f}), "
+                  f"{runs[remat]['tokens_per_s']:.0f} tokens/s; peak "
+                  f"{peak / 2**30:.2f} GiB; losses "
+                  f"{[round(x, 4) for x in losses]}; every kernel counter "
+                  f"0 ({card})")
+            del res
+        same = runs["on"]["losses"] == runs["off"]["losses"]
+        gap = max(abs(a - b) for a, b in zip(runs["on"]["losses"],
+                                             runs["off"]["losses"]))
+        print(f"[rwkv6_training] remat on: peak "
+              f"{runs['on']['peak_bytes'] / 2**30:.2f} GiB against "
+              f"{runs['off']['peak_bytes'] / 2**30:.2f} GiB off; losses "
+              f"{'equal to' if same else 'apart from'} remat off's (largest "
+              f"difference {gap:.3e})")
+        report["params"] = n_params
+        report["full"] = runs
+
+        # -- (c) where a step's time goes: one layer, one micro-batch ----
+        report["split"] = rwkv6_layer_split(torch, cfg, card)
+
+        # -- (b) reduced rwkv6: the hybrid step against a plain loop -----
+        gc.collect()
+        torch.cuda.empty_cache()
+        hierarchical.init_world_of_one(dev)
+        mesh = make_host_mesh()
+        tcfg = TrainConfig(steps=20, learning_rate=1e-3, warmup_steps=1,
+                           grad_clip=1.0, checkpoint_every=0)
+        rcfg = dataclasses.replace(reduced(cfg), dtype="float32")
+        rng = np.random.default_rng(3)
+        batches = [{k: torch.from_numpy(rng.integers(3, rcfg.vocab_size, (
+            RWKV_PARITY_BATCH, RWKV_PARITY_SEQ)).astype(np.int32)).to(dev)
+            for k in ("tokens", "targets")}
+            for _ in range(RWKV_PARITY_STEPS)]
+        p0 = convert.init_params(
+            rcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        plain = tree_map(torch.clone, p0)
+        plan = auto_plan(rcfg, mesh, ShapeConfig(
+            "rwkv", RWKV_PARITY_SEQ, RWKV_PARITY_BATCH, "train"),
+            ParallelConfig())
+        step, shardings_for = trainer.make_hybrid_train_step(
+            rcfg, plan, tcfg, params_shape=p0)
+        psh, _, _ = shardings_for(p0, batches[0])
+        params = sharding.device_put(p0, psh)
+        opt = trainer.init_hybrid_opt(rcfg, plan, params, p0)
+        hybrid = []
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            hybrid.append(float(m["loss"]))
+        popt = adamw.init_opt_state(plain)
+        ctx = tf.ModelCtx(flash_vjp=True)           # the step's at tp 1
+        loop = []
+        for b in batches:
+            leaves = tree_map(lambda x: x.detach().requires_grad_(), plain)
+            total, _ = tf.loss_fn(rcfg, leaves, b, ctx)
+            total.backward()
+            loop.append(float(total.detach()))
+            lr = schedule.warmup_cosine(popt["step"], tcfg.learning_rate,
+                                        tcfg.warmup_steps, tcfg.steps)
+            plain, popt = adamw.adamw_apply(
+                plain, tree_map(lambda x: x.grad, leaves), popt, lr, tcfg)
+        worst = max(abs(a - b) / abs(b) for a, b in zip(hybrid, loop))
+        check(worst <= RWKV_PARITY_RTOL,
+              f"rwkv6 reduced: hybrid {hybrid} against the plain loop "
+              f"{loop}")
+        report["parity"] = {"hybrid": hybrid, "loop": loop,
+                            "max_rel": worst}
+        print(f"[rwkv6_training] rwkv6 reduced (float32, "
+              f"{rcfg.num_layers} layers, d_model {rcfg.d_model}), "
+              f"{RWKV_PARITY_STEPS} steps of {RWKV_PARITY_BATCH} x "
+              f"{RWKV_PARITY_SEQ}: hybrid losses "
+              f"{[round(x, 6) for x in hybrid]} against the plain loop's "
+              f"within {worst:.2e} relative (limit {RWKV_PARITY_RTOL:g})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
 def deterministic(torch, on):
     """Deterministic algorithms on or off (uninitialised memory left
     unfilled while on, as the training phases run)."""
@@ -4663,6 +4910,9 @@ def main(argv=None) -> int:
                                    report["device"]["card"])
         report["moe_training"] = timed("moe_training", phase_moe_training,
                                        report["device"]["card"])
+        report["rwkv6_training"] = timed("rwkv6_training",
+                                         phase_rwkv6_training,
+                                         report["device"]["card"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

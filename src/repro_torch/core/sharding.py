@@ -13,7 +13,8 @@ name is that name; :func:`P` builds one).  Every sharded dim is
 divisibility-guarded: a dim that does not divide over its axes falls back
 to replication.  The rules of every family are copied (pure logic); the
 hybrid train step (``runtime/trainer.py``) runs the uniform family, dense
-and MoE.  :func:`pp_stage_specs` lays out the pipelined step's stage stack.
+and MoE, and the rwkv6 family.  :func:`pp_stage_specs` lays out the
+pipelined step's stage stack.
 ``cache_specs`` (serving) is not ported yet (``ROADMAP.md``).
 
 Embedding tables route through the sparse-embedding subsystem: top-level
@@ -56,7 +57,16 @@ forward (identity <-> all-reduce, all-gather <-> reduce-scatter):
   under the FSDP-expert rule their ``d_ff`` also lies over the dp axes,
   all-gathered at use.  The Switch aux losses are the global batch's
   (``batch_mean``, ``mean``), their gradients counted once over
-  ``model`` (``once``).
+  ``model`` (``once``);
+* rwkv6's time mix is column-parallel in ``Wr``, ``Wk``, ``Wv``, ``Wg``
+  and ``w_lora_b`` (this rank's heads, head-major, with their ``w_base``
+  channels and ``u`` rows) and row-parallel in ``Wo``; its channel mix
+  column-parallel in ``Wk`` and row-parallel in ``Wv``, the replicated
+  ``Wr``'s gate applied to this rank's partial output before the sum.
+  Both take the token shift on the whole sequence (after ``enter``).
+  ``mix``, ``w_lora_a`` and the channel mix's ``Wr`` enter through the
+  identity above; ``ln_x``, a layer norm over all ``d`` channels, runs on
+  the channels all-gathered (``channel_norm``).
 """
 from __future__ import annotations
 
@@ -535,7 +545,12 @@ class TPHooks:
     For an MoE arch, ``experts`` is this rank's expert range under EP
     (``num_experts`` must split over ``model``: JAX's guard replicates
     experts that do not, the port refuses them), and ``fsdp_axes`` the dp
-    axes the experts' ``d_ff`` lies over under the FSDP-expert rule."""
+    axes the experts' ``d_ff`` lies over under the FSDP-expert rule.
+
+    For rwkv6 the time mix's heads (``d_model / rwkv_head_size``) and the
+    channel mix's ``d_ff`` must split over ``model`` likewise; the models
+    (``models/ssm.py``) place the rest through :meth:`enter`,
+    :meth:`copy`, :meth:`channel_norm` and :meth:`exit`."""
 
     def __init__(self, plan: ShardingPlan, cfg: ArchConfig, *, seq_len: int,
                  rows: int, tables: Optional[Dict[str, Any]] = None):
@@ -584,6 +599,8 @@ class TPHooks:
             ("padded_vocab", cfg.padded_vocab % n == 0),
             ("the local q heads' kv grouping",
              cfg.num_kv_heads % n == 0 or hq % g == 0 or g % hq == 0),
+            ("the rwkv6 heads", cfg.ssm_type != "rwkv6"
+             or (cfg.d_model // cfg.rwkv_head_size) % n == 0),
         ) if not ok]
         if bad:
             raise NotImplementedError(
@@ -617,6 +634,19 @@ class TPHooks:
     def norm(self, p):
         """A norm's parameters: under SP the norm sees a sequence shard."""
         return tree_map(self.copy, p) if self.seq else p
+
+    def channel_norm(self, norm_cfg, p, x):
+        """A norm over the whole channel dim of ``x``, whose last dim holds
+        this rank's contiguous block of channels (a column-parallel
+        product's output): the channels all-gathered over ``model`` (their
+        gradient reduce-scattered back), normed with the replicated ``p``
+        (its gradient summed over ``model``), this rank's block kept."""
+        if self.tp == 1:
+            return layers.apply_norm(norm_cfg, p, x)
+        c = x.shape[-1]
+        full = _Gather.apply(x, self.mesh, self.axis, x.dim() - 1)
+        y = layers.apply_norm(norm_cfg, tree_map(self.copy, p), full)
+        return y[..., self.rank * c:(self.rank + 1) * c]
 
     def kv_weights(self, wk, wv):
         """``wk``/``wv`` as this rank uses them: its kv heads' columns of

@@ -1,11 +1,13 @@
-"""Training launcher: any uniform --arch (dense or MoE) at any scale on
-the world ``torchrun`` gives, or on a world of one (port of
-``repro/launch/train.py``).
+"""Training launcher: any uniform --arch (dense or MoE) or rwkv6-1.6b at
+any scale on the world ``torchrun`` gives, or on a world of one (port of
+``repro/launch/train.py``; jamba is not registered: its mamba layers
+are not ported, ROADMAP.md).
 
 The step is ``runtime.trainer.make_hybrid_train_step`` under the plan
 ``core.hybrid.auto_plan`` picks for the ``(data, model)`` mesh: Megatron
 TP over ``model`` (or ``dp_heavy``; the MoE archs' experts over ``model``,
-expert parallelism), DP over ``data``, ZeRO-1/2, remat,
+expert parallelism; rwkv6's heads and channel-mix ``d_ff`` over
+``model``), DP over ``data``, ZeRO-1/2, remat,
 ``--pp-micro`` micro-batches of gradient accumulation, checkpoints every
 ``max(steps // 4, 10)`` steps into ``--ckpt-dir`` and ``--resume`` from
 the latest.  NCCL on GPUs, gloo on CPUs; runs on the GPU unless
@@ -17,6 +19,10 @@ the latest.  NCCL on GPUs, gloo on CPUs; runs on the GPU unless
       --arch olmo-1b --data 2 --model 2 --steps 20 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch qwen3-moe-30b-a3b --layers 4 --steps 6 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+      --reduced --steps 12 --batch 8 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+      --steps 6 --batch 8 --seq 512 --lr 1e-4
 
 ``--pp-stages N`` (N > 1) switches to the pipelined DP x TP x stage path
 (``trainer.make_pp_train_step``) on a ``(data, model, stage)`` mesh: the
@@ -34,9 +40,12 @@ carry the bounds, which ``--resume`` restores:
 ``--remat on|off`` overrides the hybrid plan's remat choice (default
 ``auto``); ``--layers N`` keeps the arch's first N layers (the JAX
 launcher has no such flag); ``--host-devices`` (a JAX host-platform
-setting) has no meaning here and is refused.  An MoE arch with
+setting) has no meaning here and is refused.  An MoE arch or rwkv6 with
 ``--pp-stages > 1`` raises, as in JAX: the pipelined path drops the MoE
-aux losses.
+aux losses and slices only the uniform family into stages.  A
+``--model`` over which the heads, ``d_ff``, experts or padded vocab do
+not split raises too, naming ROADMAP.md (JAX's guard replicates those
+blocks).
 """
 import argparse
 import dataclasses
@@ -118,6 +127,7 @@ def run(args: argparse.Namespace, tracer=None, pipelined=None):
                                     reduced)
     from repro_torch.core.hybrid import auto_plan
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tf
     from repro_torch.obs import Tracer, write_trace
     from repro_torch.tree import tree_leaves
 
@@ -130,14 +140,16 @@ def run(args: argparse.Namespace, tracer=None, pipelined=None):
     pp = max(args.pp_stages, 1)
     if pipelined is None:
         pipelined = pp > 1
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = dataclasses.replace(reduced(cfg), dtype="float32")
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if pipelined:
+        tf.check_stage_slicing(cfg)
     _init_world(device)
     try:
         lead = dist.get_rank() == 0
-        cfg = get_arch(args.arch)
-        if args.reduced:
-            cfg = dataclasses.replace(reduced(cfg), dtype="float32")
-        if args.layers:
-            cfg = dataclasses.replace(cfg, num_layers=args.layers)
         mesh = make_host_mesh(data=args.data, model=args.model,
                               stage=pp if pipelined else 0)
         shape = ShapeConfig("cli", args.seq, args.batch, "train")

@@ -18,6 +18,14 @@ Serving hooks: ``true_len`` freezes the pads of a right-padded prompt (``w =
 1`` and ``k = 0``), so the returned state and shift are exactly those after
 ``true_len`` real tokens; :func:`scatter_slot_state` writes one request's
 states into its slot row, in place (the JAX package returns a new tree).
+
+Training under a sharding plan (``tp``, :class:`repro_torch.core.sharding.
+TPHooks`; what GSPMD places by JAX's ``tmix``/``cmix`` rules): both blocks
+take the whole sequence through ``tp.enter`` before the token shift, work
+on this rank's heads or ``d_ff`` columns and leave through ``tp.exit``.
+The WKV then runs :func:`_wkv6_chunked` on the rank's heads (the kernel
+has no backward).  With ``tp`` None every call computes what it did
+before.
 """
 from __future__ import annotations
 
@@ -62,18 +70,30 @@ def _wkv6_chunked(r, k, v, w, u, S0=None, chunk: int = 32):
 
 def rwkv6_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                   state: Dict = None, wkv_chunk: int = 32, true_len=None,
-                  use_kernel: bool = False) -> Tuple[torch.Tensor, Dict]:
+                  use_kernel: bool = False, tp=None
+                  ) -> Tuple[torch.Tensor, Dict]:
     """Time-mix block.  x (B, T, d); state {'last': (B, d), 'wkv': (B, H,
     hs, hs)} or None.  Returns (out (B, T, d), {'last', 'wkv'}).
 
     ``true_len`` (serving prefill): pad positions get ``w = 1`` (log-decay
     0) and ``k = 0``, so the WKV recurrence is frozen past the true prompt
     end.  ``use_kernel``: a ``T > 1`` call with no incoming state runs the
-    WKV through the CUDA kernel (its plain version on CPU tensors)."""
-    B, T, d = x.shape
+    WKV through the CUDA kernel (its plain version on CPU tensors).
+
+    ``tp`` (training): ``x`` is this rank's part of the residual stream
+    and ``p`` its shards (``H / tp`` heads); the returned state covers
+    those heads."""
+    if tp is not None:
+        x = tp.enter(x)
+        # used on the whole input to form only this rank's columns: their
+        # gradients are partial, summed over model
+        p = {**p, "mix": tp.copy(p["mix"]),
+             "w_lora_a": tp.copy(p["w_lora_a"])}
+    B, T, d_in = x.shape
+    d = p["Wr"].shape[-1]                   # this rank's channels
     hs = cfg.rwkv_head_size
     H = d // hs
-    last = (x.new_zeros((B, 1, d)) if state is None
+    last = (x.new_zeros((B, 1, d_in)) if state is None
             else state["last"][:, None])
     x_prev = torch.cat([last, x[:, :-1]], dim=1)           # token shift
     xf, pf = x.float(), x_prev.float()
@@ -118,8 +138,13 @@ def rwkv6_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
         out, S_f = _wkv6_chunked(r, k, v, w, p["u"], S0, chunk=wkv_chunk)
 
     out = out.reshape(B, T, d).to(x.dtype)
-    out = layers.apply_norm(_LN_X, p["ln_x"], out)
+    if tp is None:
+        out = layers.apply_norm(_LN_X, p["ln_x"], out)
+    else:                                   # a layer norm over all d
+        out = tp.channel_norm(_LN_X, p["ln_x"], out)
     out = (out * g) @ p["Wo"]
+    if tp is not None:
+        out = tp.exit(out)
     last = x[:, -1] if true_len is None else x[:, true_len - 1]
     return out, {"last": last, "wkv": S_f}
 
@@ -133,10 +158,20 @@ def init_rwkv6_state(cfg: ArchConfig, batch: int, device=None) -> Dict:
 
 
 def rwkv_cmix_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, state=None,
-                      true_len=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      true_len=None, tp=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV channel-mix (the FFN counterpart, with token shift and a
     receptance gate).  x (B, T, d); state (B, d) or None.  Returns (out,
-    the shift state: the input at the last real position)."""
+    the shift state: the input at the last real position).
+
+    ``tp`` (training): ``Wk``/``Wv`` are this rank's ``d_ff`` shards.
+    Every rank computes the whole gate from the replicated ``Wr`` and
+    applies it to its partial output, so the sum over ``model`` is the
+    gated sum and the gate's gradient, partial like the rest, is summed
+    over ``model`` (``copy``)."""
+    if tp is not None:
+        x = tp.enter(x)
+        p = {**p, "mix": tp.copy(p["mix"]), "Wr": tp.copy(p["Wr"])}
     B, T, d = x.shape
     last = x.new_zeros((B, 1, d)) if state is None else state[:, None]
     x_prev = torch.cat([last, x[:, :-1]], dim=1)
@@ -145,6 +180,8 @@ def rwkv_cmix_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor, state=None,
     xr = (xf * p["mix"][1] + pf * (1 - p["mix"][1])).to(x.dtype)
     k = torch.square(F.relu(xk @ p["Wk"]))
     out = torch.sigmoid(xr @ p["Wr"]) * (k @ p["Wv"])
+    if tp is not None:
+        out = tp.exit(out)
     shift = x[:, -1] if true_len is None else x[:, true_len - 1]
     return out, shift
 

@@ -23,12 +23,13 @@ recomputes each layer in the backward (``torch.utils.checkpoint``, the JAX
 sharding plan (:class:`repro_torch.core.sharding.TPHooks`), runs the
 forward and the loss under Megatron tensor parallelism, sequence
 parallelism, expert parallelism (the MoE archs) and the global loss mean
-of the hybrid train step.
+of the hybrid train step, for the uniform and rwkv6 families.
 
 The pipeline's stage functions (:func:`pp_partition_params`,
 :func:`make_stage_fn`, :func:`make_last_fn` and the slicing around them)
 cut the stacked layers at stage bounds for the pipelined train step
-(:mod:`repro_torch.core.pipeline`).
+(:mod:`repro_torch.core.pipeline`); they cover the dense uniform family
+(:func:`check_stage_slicing`).
 
 The rwkv6 family (:mod:`repro_torch.models.ssm`) keeps per layer a
 (B, H, hs, hs) WKV state and two token-shift rows in ``cache["states"]``,
@@ -227,14 +228,25 @@ def ffn_apply(cfg: ArchConfig, p: Dict, x, ctx: ModelCtx, live=None):
 
 
 def _rwkv_forward(cfg, params, h, ctx):
+    """The rwkv6 stack; under ``ctx.tp`` the norms see this rank's part of
+    the residual (SP: a sequence shard) and each block runs on its
+    shards; ``ctx.remat`` recomputes each layer in the backward."""
+    tp = ctx.tp
+
+    def norm(p, x):
+        return layers.apply_norm(cfg, p if tp is None else tp.norm(p), x)
+
+    def layer(x, blk):
+        t_out, _ = ssm.rwkv6_forward(cfg, blk["tmix"], norm(blk["norm1"], x),
+                                     use_kernel=ctx.use_kernels, tp=tp)
+        x = x + t_out
+        c_out, _ = ssm.rwkv_cmix_forward(cfg, blk["cmix"],
+                                         norm(blk["norm2"], x), tp=tp)
+        return x + c_out
+
     for blk in _layers(params, cfg):
-        t_out, _ = ssm.rwkv6_forward(
-            cfg, blk["tmix"], layers.apply_norm(cfg, blk["norm1"], h),
-            use_kernel=ctx.use_kernels)
-        h = h + t_out
-        c_out, _ = ssm.rwkv_cmix_forward(
-            cfg, blk["cmix"], layers.apply_norm(cfg, blk["norm2"], h))
-        h = h + c_out
+        h = (checkpoint(layer, h, blk, use_reentrant=False) if ctx.remat
+             else layer(h, blk))
     return h
 
 
@@ -270,15 +282,16 @@ def forward_hidden(cfg: ArchConfig, params: Dict, batch: Dict,
     tokens = batch["tokens"]
     B, S = tokens.shape
     tp = ctx.tp
-    if tp is not None and family(cfg) != "uniform":
+    if tp is not None and family(cfg) not in ("uniform", "rwkv6"):
         raise NotImplementedError(
             f"{family(cfg)} under a sharding plan is not ported yet "
             "(ROADMAP.md)")
     h = (layers.embed_tokens(params["embed"], tokens) if tp is None
          else tp.embed(params["embed"], tokens))
+    fn = params["final_norm"]
     if family(cfg) == "rwkv6":          # attention-free: no KV, no aux
         h = _rwkv_forward(cfg, params, h, ctx)
-        hidden = layers.apply_norm(cfg, params["final_norm"], h)
+        hidden = layers.apply_norm(cfg, fn if tp is None else tp.norm(fn), h)
         return hidden, zero_aux(cfg, h.device), None
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     live = None
@@ -306,7 +319,6 @@ def forward_hidden(cfg: ArchConfig, params: Dict, batch: Dict,
             ks.append(kv[0])
             vs.append(kv[1])
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    fn = params["final_norm"]
     hidden = layers.apply_norm(cfg, fn if tp is None else tp.norm(fn), h)
     return hidden, aux, kvs
 
@@ -635,12 +647,9 @@ def remap_stage_params(stage_params: Dict, old_bounds, new_bounds) -> Dict:
     return stage_slice_params(None, blocks, new_bounds)
 
 
-def pp_partition_params(cfg: ArchConfig, params: Dict, bounds) -> Dict:
-    """Full-model params -> the pipeline-parallel partition.
-
-    Returns {"stage": stage-stacked blocks+mask, "last": final-norm + head
-    (the tied-embedding table lives here when ``cfg.tie_embeddings``),
-    "embed": input table (untied only)}."""
+def check_stage_slicing(cfg: ArchConfig) -> None:
+    """Raise as JAX's :func:`pp_partition_params` does for an arch the
+    pipelined path cannot slice into stages."""
     if family(cfg) != "uniform":
         raise NotImplementedError(
             f"pipeline stage slicing covers the uniform family; "
@@ -653,6 +662,15 @@ def pp_partition_params(cfg: ArchConfig, params: Dict, bounds) -> Dict:
             "the pipelined path runs plain rope positions and a bare "
             "token embedding; mrope archs (patch_embeds mixing, "
             "3-component positions) are not stage-sliceable yet")
+
+
+def pp_partition_params(cfg: ArchConfig, params: Dict, bounds) -> Dict:
+    """Full-model params -> the pipeline-parallel partition.
+
+    Returns {"stage": stage-stacked blocks+mask, "last": final-norm + head
+    (the tied-embedding table lives here when ``cfg.tie_embeddings``),
+    "embed": input table (untied only)}."""
+    check_stage_slicing(cfg)
     out = {"stage": stage_slice_params(cfg, params["blocks"], bounds),
            "last": {"final_norm": params["final_norm"]}}
     if cfg.tie_embeddings:

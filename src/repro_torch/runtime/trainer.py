@@ -51,8 +51,12 @@ Switch aux losses over the global batch, and under the FSDP-expert rule
 the experts' ``d_ff`` over the dp axes, gathered at use
 (``models/moe.py``, ``core/sharding.TPHooks``).
 
+It trains rwkv6 too: the time mix's heads and the channel mix's ``d_ff``
+over ``model`` (``models/ssm.py`` under ``TPHooks``), the WKV in its
+plain chunked form on each rank's heads.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-under the hybrid step, the rwkv/mamba families.
+under the hybrid step, the mamba family (jamba).
 """
 from __future__ import annotations
 
@@ -183,10 +187,10 @@ def make_hybrid_train_step(cfg: ArchConfig, plan: Plan, tcfg: TrainConfig,
     global loss's."""
     sh = plan.sharding
     mesh = sh.mesh
-    if tf.family(cfg) != "uniform":
+    if tf.family(cfg) not in ("uniform", "rwkv6"):
         raise NotImplementedError(
             f"{cfg.name}: the hybrid step trains the uniform family (dense "
-            "and MoE); the rwkv/mamba TP rules are not ported yet "
+            "and MoE) and rwkv6; the mamba TP rules are not ported yet "
             "(ROADMAP.md)")
     M = sh.tp_axis
     tp_n = mesh.shape[M] if M else 1
