@@ -30,7 +30,10 @@ failing the run with a non-zero exit when its check fails:
    equivalent boolean mask, a yardstick the port never calls), plus for
    the paged kernels the dense kernel on the equivalent dense cache, and
    for the decode kernels their CUDA kernels' profiled times; dense decode
-   also at Qwen3-30B-A3B's GQA shape beside SDPA with ``enable_gqa``;
+   also at Qwen3-30B-A3B's GQA shape beside SDPA with ``enable_gqa``; the
+   four decode entry points also at speculative decode's verify shape (8
+   slots, 4 rows, mixed live rows), dense beside SDPA with the equivalent
+   mask;
    whether the redesigned prefill, scatter and decode kernels are at or
    below their PyTorch calls and their earlier designs' times is printed
    as a ``[gate ...]`` line, reported and not enforced.  The gradient-compression kernels (onebit quantize and
@@ -119,7 +122,18 @@ failing the run with a non-zero exit when its check fails:
    must reload with ``ph``/``ts``/``pid``/``tid`` on every event.
    Unpinned: TTFT p50 with and without the head, ``cf.lookup`` ms a
    request, and ``gather_rows``'s device ms a call on this path (the
-   profiler);
+   profiler).  Then ``spec_serving``, speculative decode
+   (``EngineConfig(spec_k=4)`` against one-token decode, the same 16
+   requests): RecLLM-base in float32 under a pinned clock under the four
+   layouts (greedy streams and ``finished`` equal, no more decode steps,
+   the paged pool drained), the same in bf16 unpinned, one-token and spec
+   runs in turns (TPOT, TTFT, throughput, decode steps, wall, the device's
+   busy share from a profile of each, the first stream divergence if
+   any), and Moonlight at 12 layers in float32 with the route kernel
+   (streams equal).  Every run launches its layout's decode entry point
+   once per layer per decode step, the spec runs some of them at Sq 2 and
+   4 (each launch counted by its rows), and Moonlight's route kernel with
+   groups of the verify rows;
 4. serving the MoE archs at full width in bf16 with the route kernel on
    every MoE FFN and both attention kernels on: Moonlight-16B-A3B cut to
    12 of its 48 layers (7.52B parameters, 15.0 GB) under the dense,
@@ -915,7 +929,7 @@ def phase_kernels(torch):
     tables = inp.ints(tables_np.tolist())
     tbl_bytes = tables.numel() * 4
 
-    def pool_of(x):
+    def pool_of(x, tables=tables, N=N):
         p = torch.zeros((N, BLOCK_MAIN) + tuple(x.shape[2:]), dtype=x.dtype,
                         device=dev)
         p[tables.long().reshape(-1)] = x.reshape((B * nb, BLOCK_MAIN)
@@ -950,6 +964,72 @@ def phase_kernels(torch):
                qgt, kgt, vgt, attn_mask=mask, enable_gqa=True),
            at=(f"B={B} S={S} H={Hq} Hk={Hg} D={Dg} (Qwen3-30B-A3B) bf16 q, "
                f"lengths {m['lengths']}", Dg, 4 * live * Hq * Dg))
+
+    # speculative decode's k-row verify (VERIFY_MAIN, the same cache shape
+    # as DECODE_MAIN): the four entry points with mixed live rows; row j
+    # of slot b attends over lengths + j keys, so the bound counts each
+    # slot's union of keys and its live rows' operations
+    vm = VERIFY_MAIN
+    Sq = vm["Sq"]
+    vlens, q_lens = inp.ints(vm["lengths"]), inp.ints(vm["q_lens"])
+    keys = sum(n + r - 1 for n, r in zip(vm["lengths"], vm["q_lens"]))
+    vat = (f"B={B} Sq={Sq} S={S} H=Hk={H} D={D} bf16 q, lengths "
+           f"{vm['lengths']}, q_lens {vm['q_lens']}", D,
+           sum(4 * (n + j) * H * D
+               for n, r in zip(vm["lengths"], vm["q_lens"])
+               for j in range(r)))
+    vqo = 2 * B * Sq * H * D * 2 + 8 * B        # q, o, lengths, q_lens
+    kv16, kv8 = 2 * keys * Hk * D * 2, 2 * keys * Hk * (D + 4)
+    qv = inp.randn(B, Sq, H, D, dtype=torch.bfloat16)
+    vtables_np, vN = paged_tables(vm["lengths"], vm["q_lens"], nb,
+                                  BLOCK_MAIN, spare=0)
+    vtables = inp.ints(vtables_np.tolist())
+    vkw = dict(q_lens=q_lens)
+    vnote = f", blocks of {BLOCK_MAIN}"
+    # SDPA's equivalent: row j of slot b sees keys < lengths + j; a dead
+    # row sees key 0 only (SDPA has no all-masked row; the kernel writes
+    # zeros there, so only live rows are compared)
+    rows = torch.arange(Sq, device=dev)
+    vlive = rows[None] < q_lens.long()[:, None]
+    vends = vlens.long()[:, None] + rows[None]      # keys row j sees
+    vmask = (pos[None, None] < vends[..., None]) & vlive[..., None]
+    vmask[:, :, 0] |= ~vlive
+    qvt = qv.transpose(1, 2)
+
+    def sdpa_verify():
+        return F.scaled_dot_product_attention(qvt, kt, vt,
+                                              attn_mask=vmask[:, None])
+
+    report["verify"] = {
+        "flash_decode": timing(
+            "flash_decode", dk.flash_decode_attention, ref.decode_attention,
+            (qv, k, v, vlens), vkw, kv16 + vqo, library=sdpa_verify,
+            at=vat),
+        "flash_decode_quant": timing(
+            "flash_decode_quant", dk.flash_decode_attention_quant,
+            ref.decode_attention_quant, (qv, k_q, k_s, v_q, v_s, vlens),
+            vkw, kv8 + vqo, shape_note=", int8", at=vat),
+        "flash_decode_paged": timing(
+            "flash_decode_paged", dk.flash_decode_attention_paged,
+            ref.decode_attention_paged,
+            (qv, *(pool_of(x, vtables, vN) for x in (k, v)), vtables,
+             vlens), vkw, kv16 + vtables.numel() * 4 + vqo,
+            shape_note=vnote, at=vat),
+        "flash_decode_paged_quant": timing(
+            "flash_decode_paged_quant",
+            dk.flash_decode_attention_paged_quant,
+            ref.decode_attention_paged_quant,
+            (qv, *(pool_of(x, vtables, vN) for x in (k_q, k_s, v_q, v_s)),
+             vtables, vlens), vkw, kv8 + vtables.numel() * 4 + vqo,
+            shape_note=", int8" + vnote, at=vat)}
+    t = report["verify"]["flash_decode"]
+    t["library_max_abs_err"] = _max_err(
+        dk.flash_decode_attention(qv, k, v, vlens, **vkw)[vlive],
+        sdpa_verify().transpose(1, 2)[vlive])
+    check(t["library_max_abs_err"] <= BF16_TOL,
+          f"flash_decode at the verify shape: SDPA's live rows differ from "
+          f"the kernel's by {t['library_max_abs_err']}")
+
     for kname, limit_ms in DECODE_GATE_MS.items():
         t = report["timing"][kname][0]
         report_gate(f"{kname} RecLLM", t["ms"], t["library_ms"],
@@ -1290,11 +1370,12 @@ def phase_serving(torch):
 
     # greedy streams under a pinned clock: f32 must match exactly, bf16 is
     # reported with the logit margin of the first differing token
-    streams = {}
+    streams, summaries = {}, {}
     for dname, c, ps in (("bfloat16", cfg, params),
                          ("float32", cfg32, params32)):
         for name, ctx in (("kernels", kern), ("plain", plain)):
-            streams[dname, name] = run(c, ps, ctx, pinned())[0]
+            streams[dname, name], _, summaries[dname, name] = run(
+                c, ps, ctx, pinned())
     n_tok = sum(len(v) for v in streams["float32", "plain"].values())
 
     def same_streams(a, b, what):
@@ -1308,8 +1389,8 @@ def phase_serving(torch):
                  "kernel path == plain path")
     # the new layouts, float32, pinned clock
     for name, (kw, _) in LAYOUTS.items():
-        streams["float32", name] = run(cfg32, params32, kern, pinned(),
-                                       CacheLayout(impl="flash", **kw))[0]
+        streams["float32", name], _, summaries["float32", name] = run(
+            cfg32, params32, kern, pinned(), CacheLayout(impl="flash", **kw))
     streams["float32", "int8_plain"] = run(
         cfg32, params32, kern, pinned(),
         CacheLayout(kv_bits=8, impl="dense"))[0]
@@ -1363,6 +1444,237 @@ def phase_serving(torch):
     print(f"[serve] prefix sharing, 4 x one 40-token prompt, blocks of "
           f"{BLOCK_MAIN}: {pg}; pool drained; float32 streams == dense")
     report["prefix_sharing"] = pg
+    # the float32 one-token runs of the kernel path, layout by layout: the
+    # spec phase holds its spec_k runs against them
+    one = {"dense": "kernels", **{n: n for n in LAYOUTS}}
+    report["f32_one_token"] = {
+        layout: {"streams": streams["float32", name],
+                 "finished": summaries["float32", name]["finished"],
+                 "decode_steps": summaries["float32", name]["decode_steps"]}
+        for layout, name in one.items()}
+    return report
+
+
+# -- speculative decode ---------------------------------------------------------
+
+SPEC_K = 4               # verify rows a step (the launcher's --spec-k)
+# the k-row verify shape of RecLLM-base: 8 slots, k = 4, mixed live rows;
+# lengths are row 0's valid length (cache_len + 1), every live row fits S
+VERIFY_MAIN = dict(B=8, Sq=SPEC_K, S=512, H=12, Hk=12, D=64,
+                   lengths=[1, 37, 64, 100, 200, 300, 450, 509],
+                   q_lens=[4, 1, 2, 3, 4, 1, 4, 4])
+SPEC_MOE = ("moonlight", "moonshot-v1-16b-a3b", 12)   # phase 4's depth
+
+
+@contextlib.contextmanager
+def rows_seen():
+    """Count, while active, the query rows (Sq) of every flash-decode
+    launch and the (groups, group size) of every MoE route call: {"decode":
+    {Sq: calls}, "moe_route": {(g, G): calls}}.  It wraps the decode
+    wrappers' shared ``_launch`` and ``ops.moe_route``; the launch counters
+    stay on the wrappers themselves."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ops
+    seen = {"decode": {}, "moe_route": {}}
+    launch, route = dk._launch, ops.moe_route
+
+    def count(what, key):
+        seen[what][key] = seen[what].get(key, 0) + 1
+
+    def _launch(fn_name, q, *a, **kw):
+        count("decode", q.shape[1])
+        return launch(fn_name, q, *a, **kw)
+
+    def moe_route(logits, *a, **kw):
+        count("moe_route", tuple(logits.shape[:2]))
+        return route(logits, *a, **kw)
+
+    dk._launch, ops.moe_route = _launch, moe_route
+    try:
+        yield seen
+    finally:
+        dk._launch, ops.moe_route = launch, route
+
+
+def phase_spec_serving(torch, one_token):
+    """Speculative decode on the card (``EngineConfig.spec_k`` = SPEC_K
+    against 1): RecLLM-base at full width in float32 under the four layouts
+    against the serving phase's one-token runs (``one_token``: layout ->
+    streams, finished, decode steps; streams token-exact, the pool
+    drained, no more decode steps), the same in bf16 timed in turns and
+    profiled, Moonlight (phase 4's depth) dense in float32 with the route
+    kernel, and the layouts' decode entry points launched once per layer
+    per step at Sq > 1.  The entry points at the verify shape are timed in
+    the kernels phase."""
+    from repro_torch import convert
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import (CacheLayout, Clock, EngineConfig,
+                                     ServingEngine, TrafficConfig, generate,
+                                     make_backend)
+    dev = torch.device("cuda")
+    report = {"runs": {}, "profile": {}}
+    kern = tf.ModelCtx(attn_impl="flash", decode_impl="flash", attn_chunk=8)
+    ecfg = EngineConfig(n_slots=8, max_len=512)
+    layouts = [("dense", None, "flash_decode")] + [
+        (name, CacheLayout(impl="flash", **kw), kname)
+        for name, (kw, kname) in LAYOUTS.items()]
+
+    def serve(name, cfg, params, ctx, layout, spec_k, per_layer, requests,
+              pinned=True, warm_up=False):
+        """One measured run (serve_measured's launch checks) of a fresh
+        engine; spec runs also count the rows of every launch."""
+        e = dataclasses.replace(ecfg, spec_k=spec_k,
+                                **({} if layout is None else
+                                   {"layout": layout}))
+        engines = []
+
+        def run():
+            engines.append(ServingEngine(
+                make_backend(cfg, params, ctx, layout=layout, device=dev), e,
+                Clock(fixed_decode_s=0.01, fixed_prefill_s=0.02)
+                if pinned else None))
+            return engines[-1].run(requests)
+
+        with rows_seen() as seen:
+            res, streams = serve_measured(name, cfg, e, run, len(requests),
+                                          per_layer, warm_up=warm_up)
+        res["rows_seen"] = {"decode": seen["decode"],
+                            "moe_route": {f"{g}x{G}": n for (g, G), n in
+                                          seen["moe_route"].items()}}
+        if spec_k > 1:
+            s = res["summary"]["spec"]
+            check(any(r > 1 for r in seen["decode"]),
+                  f"{name}: no decode launch at Sq > 1 (rows seen "
+                  f"{seen['decode']})")
+            print(f"[spec {name}] accepted_tokens_per_step "
+                  f"{s['accepted_tokens_per_step']:.4f}, "
+                  f"verify_rows_per_step {s['verify_rows_per_step']:.4f}, "
+                  f"{res['summary']['decode_steps']} decode steps; decode "
+                  f"launches by Sq {seen['decode']}")
+        pool = engines[-1].pool
+        res["pool_used_after"] = None if pool is None else pool.used_blocks
+        return res, streams, run
+
+    def compare(name, one, spec):
+        """``one``: the one-token run's streams, finished and decode steps;
+        ``spec``: the spec run's (result, streams)."""
+        rk, sk = spec
+        steps = rk["summary"]["decode_steps"]
+        div = _first_divergence(sk, one["streams"])
+        check(div is None, f"{name}: spec streams differ from one-token "
+                           f"streams at (rid, token) {div}")
+        check(rk["summary"]["finished"] == one["finished"],
+              f"{name}: finished {rk['summary']['finished']} != "
+              f"{one['finished']}")
+        check(steps <= one["decode_steps"],
+              f"{name}: {steps} spec decode steps > {one['decode_steps']} "
+              "one-token steps")
+        check(rk["pool_used_after"] in (None, 0),
+              f"{name}: {rk['pool_used_after']} blocks used after the run")
+        print(f"[spec {name}] streams == one-token streams "
+              f"({sum(len(v) for v in one['streams'].values())} tokens); "
+              f"decode steps {steps} against {one['decode_steps']}"
+              + ("; pool drained" if rk["pool_used_after"] == 0 else ""))
+
+    # (a) float32, pinned clock: spec streams == the serving phase's
+    # one-token streams (the same requests, params, clock and context)
+    cfg = get_arch("recllm-base")
+    requests = generate(TrafficConfig(n_requests=16,
+                                      vocab_size=cfg.vocab_size, seed=0))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = convert.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    for name, layout, dkern in layouts:
+        key = f"f32_{name}_k{SPEC_K}"
+        r, streams, _ = serve(key, cfg32, params32, kern, layout, SPEC_K,
+                              {"flash_attention": "prefill",
+                               dkern: "decode"}, requests)
+        report["runs"][key] = r
+        report["runs"][key]["one_token_decode_steps"] = one_token[name][
+            "decode_steps"]
+        compare(f"f32_{name}", one_token[name], (r, streams))
+    params32 = None
+    torch.cuda.empty_cache()
+
+    # (b) bf16, unpinned, in turns: one-token and spec runs alternate
+    params = convert.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    bf16 = {}
+    for i, (name, layout, dkern) in enumerate(layouts):
+        per_layer = {"flash_attention": "prefill", dkern: "decode"}
+        order = [1, SPEC_K, SPEC_K, 1] if name == "dense" else [SPEC_K, 1]
+        for turn, k in enumerate(order):
+            key = f"bf16_{name}_k{k}" + (f"_{turn}" if name == "dense"
+                                        else "")
+            r, streams, run = serve(key, cfg, params, kern, layout, k,
+                                    per_layer, requests, pinned=False,
+                                    warm_up=(i == 0 and turn == 0))
+            report["runs"][key] = r
+            bf16.setdefault((name, k), []).append((r, streams, run))
+        for k in (1, SPEC_K):
+            r, _, run = bf16[name, k][-1]
+            report["profile"][f"bf16_{name}_k{k}"] = profile_serve(
+                torch, f"spec bf16_{name}_k{k}", run, r["wall_s"], ATTN_TAGS)
+        div = _first_divergence(bf16[name, SPEC_K][0][1], bf16[name, 1][0][1])
+        report["runs"][f"bf16_{name}_divergence"] = div
+        print(f"[spec bf16_{name}] streams spec against one-token: "
+              + ("equal" if div is None else
+                 f"first differ at (rid, token) {div}"))
+    report["bf16_table"] = {}
+    for name, _, _ in layouts:
+        row = {}
+        for k in (1, SPEC_K):
+            rs = [r for r, _, _ in bf16[name, k]]
+            su = [r["summary"] for r in rs]
+            row[f"k{k}"] = {
+                "tpot_p50_ms": [s["tpot_s"]["p50"] * 1e3 for s in su],
+                "tpot_p99_ms": [s["tpot_s"]["p99"] * 1e3 for s in su],
+                "ttft_p50_ms": [s["ttft_s"]["p50"] * 1e3 for s in su],
+                "throughput_tok_s": [s["throughput_tok_s"] for s in su],
+                "decode_steps": [s["decode_steps"] for s in su],
+                "wall_s": [r["wall_s"] for r in rs],
+                "busy_share": report["profile"][f"bf16_{name}_k{k}"][
+                    "busy_share"]}
+        report["bf16_table"][name] = row
+        print(f"[spec bf16_{name}] one-token against spec k={SPEC_K}: " +
+              "; ".join(f"{m} {row['k1'][m]} vs {row[f'k{SPEC_K}'][m]}"
+                        for m in row["k1"]))
+    params = None
+    torch.cuda.empty_cache()
+
+    # (c) Moonlight at phase 4's depth, float32, dense, the route kernel
+    short, arch, n_layers = SPEC_MOE
+    mcfg = dataclasses.replace(get_arch(arch), num_layers=n_layers,
+                               dtype="float32")
+    mparams = convert.init_params(
+        mcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    mreqs = generate(TrafficConfig(n_requests=16,
+                                   vocab_size=mcfg.vocab_size, seed=0))
+    mctx = dataclasses.replace(kern, use_kernels=True)
+    per_layer = {"flash_attention": "prefill", "flash_decode": "decode",
+                 "moe_route": "both"}
+    mruns = {}
+    for k in (1, SPEC_K):
+        key = f"{short}_f32_dense_k{k}"
+        r, streams, _ = serve(key, mcfg, mparams, mctx, None, k, per_layer,
+                              mreqs)
+        report["runs"][key] = r
+        mruns[k] = (r, streams)
+    groups = {G for (g, G) in
+              (tuple(map(int, s.split("x")))
+               for s in mruns[SPEC_K][0]["rows_seen"]["moe_route"])
+              if g == ecfg.n_slots}
+    check(any(G > 1 for G in groups), f"{short}: no route launch with "
+                                      f"groups of the verify rows ({groups})")
+    print(f"[spec {short}] route calls by (groups x group size): "
+          f"{mruns[SPEC_K][0]['rows_seen']['moe_route']}")
+    r1, s1 = mruns[1]
+    compare(f"{short}_f32_dense",
+            {"streams": s1, "finished": r1["summary"]["finished"],
+             "decode_steps": r1["summary"]["decode_steps"]}, mruns[SPEC_K])
+    mparams = None
+    torch.cuda.empty_cache()
     return report
 
 
@@ -4893,6 +5205,9 @@ def main(argv=None) -> int:
             timed(name, fn, report["kernels"])
         timed("autograd_guard", check_autograd_guard)
         report["serving"] = timed("serving", phase_serving)
+        report["spec_serving"] = timed(
+            "spec_serving", phase_spec_serving,
+            report["serving"].pop("f32_one_token"))
         report["cf_serving"] = timed("cf_serving", phase_cf_serving,
                                      report["device"]["card"])
         report["moe_serving"] = timed("moe_serving", phase_moe_serving)
@@ -4952,6 +5267,18 @@ def main(argv=None) -> int:
         "launches": {k: v["gather_rows"]
                      for k, v in sharded["launches"].items()},
         "device_ms_row": sharded["gather_rows_device_ms"]}
+    # the k-row verify: each decode entry point at the verify shape and its
+    # launches in the bf16 spec run of its layout; the route kernel's in
+    # Moonlight's spec run (groups of the verify rows)
+    spec = report["spec_serving"]
+    spec_of = {kname: dict(report["kernels"]["verify"][kname],
+                           launches=spec["runs"][
+        f"bf16_{name}_k{SPEC_K}" + ("_1" if name == "dense" else "")][
+        "launches"][kname]) for name, kname in
+        [("dense", "flash_decode")] + [(n, kn) for n, (_, kn) in
+                                       LAYOUTS.items()]}
+    spec_of["moe_route"] = {"launches": spec["runs"][
+        f"{SPEC_MOE[0]}_f32_dense_k{SPEC_K}"]["launches"]["moe_route"]}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = report["kernels"]["timing"][name][0]     # the main-path shape
@@ -4967,7 +5294,8 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], **({"cf_serve": cf_serve}
-                                    if name == "gather_rows" else {})})
+                                    if name == "gather_rows" else {}),
+            **({"spec_verify": spec_of[name]} if name in spec_of else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Serving launcher: the continuous-batching engine under simulated recsys
-load (port of ``repro/launch/serve.py``, engine mode, greedy decode of the
-uniform and rwkv6 families).
+load (port of ``repro/launch/serve.py``, engine mode, greedy one-token and
+speculative decode of the uniform family, one-token decode of rwkv6).
 
 Runs on the GPU unless ``--device cpu``; reports throughput and p50/p95/p99
 TTFT / per-token latency against SLO tiers:
@@ -29,6 +29,17 @@ reference's error (it carries no KV).  The layout flags (``--kv``,
 ``--no-prefix-sharing``) fold into one
 :class:`~repro_torch.cache_layout.CacheLayout`, as in the JAX launcher.
 Weights are random, drawn from ``--seed``.
+
+``--spec-k N`` turns on speculative decode: each step self-drafts up to
+N - 1 tokens a slot from the request's own prompt and output
+(``--spec-draft ngram``, no second model) and verifies every row in one
+k-row decode through the layout's decode path (the k-row forms of the
+flash-decode kernels under ``--decode-impl flash``); greedy streams equal
+one-token decode's, and ``--json`` prints the summary's ``spec`` block
+(accepted tokens and verify rows per slot-step):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --spec-k 4 --cache-layout paged --decode-impl flash
 
 ``--candidates N`` attaches a head-heavy (Zipfian) candidate item set to
 every request and ``--cf-plan replicated`` mounts the CF scoring head: each
@@ -99,7 +110,8 @@ def run_engine(args) -> int:
     ecfg = EngineConfig(n_slots=args.slots, max_len=args.max_len,
                         queue_capacity=args.queue_capacity,
                         refill=args.refill, sample_seed=args.seed,
-                        layout=layout)
+                        layout=layout, spec_k=args.spec_k,
+                        spec_draft=args.spec_draft)
     ctx = ModelCtx(attn_impl=args.attn_impl, attn_chunk=8,
                    use_kernels=args.kernels)
 
@@ -142,7 +154,7 @@ def _serve(args, cfg, params, device, tcfg, requests, layout, ecfg,
         metrics = MetricsRegistry() if args.trace_out else None
         server = mk_server(tracer, metrics)
     except (ValueError, NotImplementedError) as e:
-        # layout/family mismatches
+        # layout/family/spec_k mismatches
         raise SystemExit(str(e))
     outputs, records, summary = server.run(requests)
 
@@ -211,6 +223,14 @@ def main(argv=None) -> int:
                          "rwkv6: each prefill's WKV recurrence through the "
                          "CUDA chunked-WKV6 kernel) instead of its plain "
                          "version")
+    ap.add_argument("--spec-k", type=int, default=1,
+                    help="speculative decode: verify up to this many token "
+                         "rows per slot per step (1 = one-token decode; "
+                         "KV families only: rwkv6 refuses)")
+    ap.add_argument("--spec-draft", default="ngram", choices=("ngram",),
+                    help="speculative draft source: self-speculative n-gram "
+                         "lookup over the request's own prompt + output "
+                         "(no second model)")
     ap.add_argument("--candidates", type=int, default=0,
                     help="recsys retrieval->rank: head-heavy (Zipfian) "
                          "candidate item ids per request the CF head "

@@ -8,9 +8,9 @@ paged; ``impl="dense"``: one einsum with the scales folded in), so no
 dequantized copy of the cache is ever made.
 
 As in :mod:`repro_torch.models.transformer`, the caches are written in
-place.  The JAX package's speculative twin (``quant_decode_spec``) and the
-``*_tree`` helpers of the generic int8 composition are not ported yet
-(``ROADMAP.md``).
+place, by the one-token step and by its speculative k-row twin
+(:func:`quant_decode_spec`).  The ``*_tree`` helpers of the generic int8
+composition are not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -164,6 +164,66 @@ def quant_decode_step(cfg, params, cache: Dict, tokens, ctx=None):
         h = h + tf.ffn_apply(cfg, blk_p["ffn"], h, ctx)[0]
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return layers.lm_logits(cfg, params, h), dict(cache, len=pos + 1)
+
+
+def quant_decode_spec(cfg, params, cache: Dict, tokens, ctx=None,
+                      q_lens=None):
+    """Speculative k-row twin of :func:`quant_decode_step` (dense or paged
+    int8 cache).  tokens (B, k) -> (logits (B, k, V), accepts (B,), the
+    cache with ``len += accepts``).  The k rows' K/V are quantized and land
+    at ``len + j`` before attention (dense: :func:`transformer.spec_rows`,
+    which keeps JAX's drop of rows past the end; paged: through the write
+    table, rows past the virtual space into the null block); draft row
+    ``j`` attends with effective length ``len + 1 + j`` and ``q_lens``
+    caps the live rows.  Rejected rows leave int8 garbage at dead
+    positions only, as in the 16-bit linear caches."""
+    tf.check_spec(cfg)
+    tf.check_ported(cfg)
+    if ctx is None:
+        ctx = tf.ModelCtx()
+    from repro_torch.kernels import ops
+    B, Sq = tokens.shape
+    if q_lens is None:
+        q_lens = torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
+    q_lens = q_lens.to(torch.int32)
+    lens = cache["len"]
+    pos = tf.spec_positions(lens, Sq)
+    h = layers.embed_tokens(params["embed"], tokens)
+    paged = "block_table" in cache
+    if paged:
+        bs, nb = cache["k_q"].shape[2], cache["block_table"].shape[1]
+        S = nb * bs
+        phys, off = tf.paged_spec_targets(lens, Sq, cache["write_table"], bs)
+        layout = CacheLayout(kind="paged", kv_bits=8, impl=ctx.decode_impl,
+                             block_size=bs)
+    else:
+        S = cache["k_q"].shape[2]
+        tgt, src = tf.spec_rows(lens, Sq, S)
+    for i, blk_p in enumerate(tf._layers(params, cfg)):
+        k_q, k_s, v_q, v_s = (cache[n][i] for n in ("k_q", "k_s", "v_q",
+                                                     "v_s"))
+        hn = layers.apply_norm(cfg, blk_p["attn"]["norm"], h)
+        q, k, v = tf._qkv(cfg, blk_p["attn"], hn, pos)
+        new = (*quantize_kv(k), *quantize_kv(v))
+        if paged:
+            for pool, rows in zip((k_q, k_s, v_q, v_s), new):
+                pool[phys, off] = rows
+            o = ops.decode_attention(
+                q, {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s,
+                    "block_table": cache["block_table"]},
+                torch.clamp(lens + 1, max=S), layout=layout, q_lens=q_lens)
+        else:
+            for rows_c, rows in zip((k_q, k_s, v_q, v_s), new):
+                tf.write_spec_rows(rows_c, tgt, src, rows)
+            # unclamped, as in the JAX package (see quant_decode_step)
+            o = decode_attention_quant(q, k_q, k_s, v_q, v_s, lens + 1,
+                                       impl=ctx.decode_impl, q_lens=q_lens)
+        h = h + o.reshape(B, Sq, cfg.q_dim) @ blk_p["attn"]["wo"]
+        h = h + tf.ffn_apply(cfg, blk_p["ffn"], h, ctx)[0]
+    h = layers.apply_norm(cfg, params["final_norm"], h)
+    logits = layers.lm_logits(cfg, params, h)
+    accepts = tf.verify_greedy(tokens, logits, q_lens)
+    return logits, accepts, dict(cache, len=lens + accepts)
 
 
 def quant_prefill_kv(cfg, params, batch: Dict, ctx=None, true_len=None):

@@ -1,7 +1,8 @@
 """The uniform decoder-only stack and the attention-free rwkv6 stack (port
 of those two families of ``repro/models/transformer.py``): forward,
-per-slot prefill and one-token decode over a stacked KV cache or stacked
-recurrent states.
+per-slot prefill, one-token decode and, for the uniform family, the
+speculative k-row verify (:func:`decode_spec`) over a stacked KV cache or
+stacked recurrent states.
 
 Parameters are a plain dict keyed like the JAX pytree; the per-layer
 leaves under ``params["blocks"]`` stay stacked ``(L, ...)`` and the layers
@@ -9,10 +10,10 @@ run as a Python loop (the JAX ``lax.scan``).
 
 **The KV cache is updated in place.**  JAX writes a new cache array each
 step (``k_cache.at[...].set``); here :func:`attn_decode`,
-:func:`attn_decode_paged` and :func:`prefill_into_slot` write the new rows
-into the stacked ``(L, n_slots, S, Hk, D)`` tensors or ``(L, N, bs, Hk,
-D)`` pools they were given, and return the same tensors.  Only
-``cache["len"]`` is a new tensor after a decode step.
+:func:`attn_decode_paged`, their k-row twins and :func:`prefill_into_slot`
+write the new rows into the stacked ``(L, n_slots, S, Hk, D)`` tensors or
+``(L, N, bs, Hk, D)`` pools they were given, and return the same
+tensors.  Only ``cache["len"]`` is a new tensor after a decode step.
 
 :func:`loss_fn` and :func:`chunked_ce` give the training loss; the
 backward is PyTorch's autograd through the ``chunked`` (or ``naive``)
@@ -37,8 +38,9 @@ written in place by the prefill and the decode step like the KV cache.
 
 This port covers the uniform family -- RecLLM, and the MoE archs with
 qk-norm (:mod:`repro_torch.models.moe`) -- with dense and paged caches, and
-the rwkv6 family: M-RoPE, learned positions, the other families and
-chunked prefill raise ``NotImplementedError``; they are queued in
+the rwkv6 family: M-RoPE, learned positions, the other families (the
+ring caches of gemma's speculative decode among them) and chunked
+prefill raise ``NotImplementedError``; they are queued in
 ``ROADMAP.md``.
 """
 from __future__ import annotations
@@ -208,6 +210,107 @@ def attn_decode_paged(cfg: ArchConfig, p: Dict, x, position, ctx: ModelCtx,
                                  "block_table": read_table}, valid,
                              layout=layout)
     return o.reshape(B, 1, cfg.q_dim) @ p["wo"]
+
+
+def spec_rows(cache_len, Sq: int, S: int):
+    """Where the ``Sq`` rows of a k-row verify land in linear caches of
+    ``S`` rows: ``(target (B, Sq), source (B, Sq))``, both int64.
+
+    Row ``j`` belongs at ``cache_len + j``; JAX drops a row past the end
+    (``mode="drop"``).  ``index_put_`` cannot drop, and a clamp alone would
+    race a dead row's write against the live write of row ``S - 1``, so a
+    row past the end is sent to ``S - 1`` carrying the value of the row
+    that lands there: ``source = target - cache_len`` is the row whose
+    value each target receives, and is negative when no row of this step
+    lands at ``S - 1`` (``cache_len >= S``: the old value stays).  Every
+    duplicate target then carries one value."""
+    lens = cache_len.long()[:, None]
+    tgt = torch.clamp(lens + torch.arange(Sq, device=lens.device), max=S - 1)
+    return tgt, tgt - lens
+
+
+def write_spec_rows(cache, tgt, src, new) -> None:
+    """``cache[b, tgt[b, j]] = new[b, src[b, j]]`` in place, keeping the
+    old row where ``src < 0`` (see :func:`spec_rows`).  ``cache`` (B, S,
+    ...), ``new`` (B, Sq, ...)."""
+    b = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    keep = (src >= 0).reshape(src.shape + (1,) * (new.dim() - 2))
+    cache[b, tgt] = torch.where(keep, new[b, torch.clamp(src, min=0)].to(
+        cache.dtype), cache[b, tgt])
+
+
+def paged_spec_targets(cache_len, Sq: int, write_table, bs: int):
+    """(physical block, in-block row) ``(B, Sq)`` int64 of each verify row
+    ``cache_len + j`` through the write table; a row past the virtual
+    space (``nb * bs``) goes to the null block 0, as in JAX (the block
+    index is clamped, as JAX clamps an out-of-range gather)."""
+    nb = write_table.shape[1]
+    B = write_table.shape[0]
+    pos = cache_len.long()[:, None] + torch.arange(Sq, device=cache_len.device)
+    blk = torch.clamp(pos // bs, max=nb - 1)
+    phys = write_table[torch.arange(B, device=pos.device)[:, None],
+                       blk].long()
+    phys = torch.where(pos < nb * bs, phys, torch.zeros_like(phys))
+    return phys, pos % bs
+
+
+def attn_decode_spec(cfg: ArchConfig, p: Dict, x, position, ctx: ModelCtx,
+                     k_cache, v_cache, cache_len, q_lens, *,
+                     window: int = 0, snapshot: bool = False):
+    """Speculative k-row decode.  x (B, k, d); position (B, k); caches
+    (B, S, Hk, D) (views of the stacked cache, written in place);
+    cache_len (B,) committed rows; q_lens (B,) in [1, k] live rows per
+    slot.  Returns the residual branch.
+
+    All k rows' K/V land at ``cache_len + j`` before the attention; the
+    k-row decode path gives draft row ``j`` the effective length
+    ``cache_len + 1 + j`` and zeroes rows ``>= q_lens``.  Rejected rows
+    leave garbage only past the committed length, masked until later
+    appends overwrite it, so a linear cache needs no rollback.  The ring
+    branch (``window > 0``, gemma's local layers and its row snapshots)
+    is not ported."""
+    if window > 0 or snapshot:
+        raise NotImplementedError(
+            "speculative decode over a ring cache (window > 0: gemma's "
+            "local layers) is not ported yet (ROADMAP.md)")
+    B, Sq = x.shape[:2]
+    S = k_cache.shape[1]
+    h = layers.apply_norm(cfg, p["norm"], x)
+    q, k, v = _qkv(cfg, p, h, position)
+    tgt, src = spec_rows(cache_len, Sq, S)
+    write_spec_rows(k_cache, tgt, src, k)
+    write_spec_rows(v_cache, tgt, src, v)
+    o = attn_lib.decode_attention(q, k_cache, v_cache,
+                                  torch.clamp(cache_len + 1, max=S),
+                                  impl=ctx.decode_impl, q_lens=q_lens)
+    return o.reshape(B, Sq, cfg.q_dim) @ p["wo"]
+
+
+def attn_decode_paged_spec(cfg: ArchConfig, p: Dict, x, position,
+                           ctx: ModelCtx, k_pool, v_pool, read_table,
+                           write_table, cache_len, q_lens):
+    """Speculative k-row twin of :func:`attn_decode_paged`: row ``j``
+    lands at physical block ``write_table[b, (len + j) // bs]``, row
+    ``(len + j) % bs`` (:func:`paged_spec_targets`).  The engine owns
+    every block of the live span before the step
+    (:meth:`~repro_torch.serving.block_pool.SlotTables.ensure_writable_span`),
+    so accepted rows land in readable blocks; rejected rows leave garbage
+    at dead positions or in the null block only."""
+    from repro_torch.kernels import ops
+    B, Sq = x.shape[:2]
+    bs = k_pool.shape[1]
+    S = read_table.shape[1] * bs
+    h = layers.apply_norm(cfg, p["norm"], x)
+    q, k, v = _qkv(cfg, p, h, position)
+    phys, off = paged_spec_targets(cache_len, Sq, write_table, bs)
+    k_pool[phys, off] = k.to(k_pool.dtype)
+    v_pool[phys, off] = v.to(v_pool.dtype)
+    layout = CacheLayout(kind="paged", impl=ctx.decode_impl, block_size=bs)
+    o = ops.decode_attention(q, {"k": k_pool, "v": v_pool,
+                                 "block_table": read_table},
+                             torch.clamp(cache_len + 1, max=S),
+                             layout=layout, q_lens=q_lens)
+    return o.reshape(B, Sq, cfg.q_dim) @ p["wo"]
 
 
 def ffn_apply(cfg: ArchConfig, p: Dict, x, ctx: ModelCtx, live=None):
@@ -589,6 +692,86 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
         h, cache = decode(cfg, params, h, cache["len"], ctx, cache)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return layers.lm_logits(cfg, params, h), cache
+
+
+def _uniform_decode_spec(cfg, params, h, position, ctx, cache, q_lens):
+    for i, blk in enumerate(_layers(params, cfg)):
+        h = h + attn_decode_spec(cfg, blk["attn"], h, position, ctx,
+                                 cache["k"][i], cache["v"][i], cache["len"],
+                                 q_lens)
+        # dead rows route through the MoE too, as in the JAX package
+        h = h + ffn_apply(cfg, blk["ffn"], h, ctx)[0]
+    return h, cache
+
+
+def _uniform_decode_paged_spec(cfg, params, h, position, ctx, cache,
+                               q_lens):
+    read_t, write_t = cache["block_table"], cache["write_table"]
+    for i, blk in enumerate(_layers(params, cfg)):
+        h = h + attn_decode_paged_spec(cfg, blk["attn"], h, position, ctx,
+                                       cache["k"][i], cache["v"][i], read_t,
+                                       write_t, cache["len"], q_lens)
+        h = h + ffn_apply(cfg, blk["ffn"], h, ctx)[0]
+    return h, cache
+
+
+def verify_greedy(tokens, logits, q_lens):
+    """Greedy draft verification.  ``tokens`` (B, k) are the step inputs
+    (row 0 the last committed token, rows 1.. drafts), ``logits`` (B, k, V)
+    from :func:`decode_spec`, ``q_lens`` (B,) live rows.  Returns
+    ``accepts`` (B,) int32 in ``[1, q_lens]``: row ``j``'s greedy emission
+    counts iff every earlier draft row matched the emission before it, so
+    the accepted prefix is what row-by-row greedy decode would emit."""
+    k = tokens.shape[1]
+    g = torch.argmax(logits, dim=-1)
+    ok = (tokens[:, 1:] == g[:, :-1]) & (
+        torch.arange(k - 1, device=tokens.device)[None]
+        < q_lens[:, None] - 1)
+    return (1 + torch.cumprod(ok.int(), dim=1).sum(dim=1)).int()
+
+
+def spec_positions(cache_len, k: int):
+    """(B, k) positions ``cache_len + j`` of a verify's rows."""
+    return cache_len[:, None] + torch.arange(k, device=cache_len.device)[None]
+
+
+def check_spec(cfg: ArchConfig) -> None:
+    """The reference's refusal of a family whose per-token state cannot
+    rewind a rejected draft row."""
+    fam = family(cfg)
+    if fam not in SPEC_FAMILIES:
+        raise ValueError(
+            f"speculative decode needs a rollback-free KV cache; family "
+            f"{fam!r} carries recurrent per-token state that cannot rewind "
+            f"rejected draft rows (supported: {SPEC_FAMILIES})")
+
+
+def decode_spec(cfg: ArchConfig, params: Dict, cache: Dict, tokens,
+                ctx: ModelCtx = ModelCtx(), q_lens=None):
+    """Speculative k-row decode + greedy verification + commit.
+
+    ``tokens`` (B, k): row 0 is the last committed token (whose KV is not
+    yet in the cache, as for :func:`decode_step`), rows ``1..k-1`` the
+    self-drafted continuation; ``q_lens`` (B,) in ``[1, k]`` live rows per
+    slot (default all k); row ``j`` sits at position ``len + j``.  Returns ``(logits (B, k, V), accepts (B,), cache)`` with the cache
+    committed: ``len += accepts``.  Rejected rows leave garbage only past
+    the committed length.  The uniform family, dense or paged; rwkv6
+    raises the reference's ``ValueError``."""
+    check_spec(cfg)
+    check_ported(cfg)
+    B, k = tokens.shape
+    if q_lens is None:
+        q_lens = torch.full((B,), k, dtype=torch.int32, device=tokens.device)
+    q_lens = q_lens.to(torch.int32)
+    h = layers.embed_tokens(params["embed"], tokens)
+    pos = spec_positions(cache["len"], k)
+    decode = (_uniform_decode_paged_spec if "block_table" in cache
+              else _uniform_decode_spec)
+    h, cache = decode(cfg, params, h, pos, ctx, cache, q_lens)
+    h = layers.apply_norm(cfg, params["final_norm"], h)
+    logits = layers.lm_logits(cfg, params, h)
+    accepts = verify_greedy(tokens, logits, q_lens)
+    return logits, accepts, dict(cache, len=cache["len"] + accepts)
 
 
 # ---------------------------------------------------------------------------

@@ -296,6 +296,24 @@ class SlotTables:
         """
         return self._ensure_block(slot, pos // self.pool.block_size)
 
+    def ensure_writable_span(self, slot: int, start: int,
+                             count: int) -> List[Tuple[int, int]]:
+        """Make the ``count`` virtual positions ``[start, start + count)``
+        writable in one pass -- the multi-token (speculative) twin of
+        :meth:`ensure_writable`.  Each touched block is resolved once, so a
+        k-token span costs at most one copy per distinct block it crosses.
+        Returns the (src, dst) COW pairs the engine must copy on device,
+        oldest block first."""
+        if count <= 0:
+            return []
+        bs = self.pool.block_size
+        pairs = []
+        for i in range(start // bs, (start + count - 1) // bs + 1):
+            pair = self._ensure_block(slot, i)
+            if pair is not None:
+                pairs.append(pair)
+        return pairs
+
     def _ensure_block(self, slot: int,
                       i: int) -> Optional[Tuple[int, int]]:
         b = int(self.read[slot, i])

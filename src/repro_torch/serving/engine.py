@@ -41,13 +41,19 @@ load gauges.  A CF head (:class:`~repro_torch.serving.cf_head.CFHead`)
 scores a request's candidate set between its prefill and its first-token
 stamp, inside the ``req.prefill`` span (``cf.lookup``).
 
-This port serves greedy decode with one token per step.  Everything else
-raises ``NotImplementedError`` rather than being ignored: sampled requests
-(``temperature > 0``), the generic int8 composition and the paged one over
-KV leaves (other families, streaming prefill), ``spec_k > 1`` (a
-recurrent family raises the reference's ``ValueError``),
-``prefill_chunk > 0``, and prefill/decode engine roles (``ROADMAP.md``
-queues them).
+This port serves greedy decode, one token per step or, with
+``EngineConfig.spec_k > 1``, speculatively: each step self-drafts up to
+``spec_k - 1`` continuation tokens a slot (:func:`ngram_draft`, no second
+model), verifies every row in one k-row decode
+(:func:`~repro_torch.models.transformer.decode_spec` /
+:func:`~repro_torch.models.kvquant.quant_decode_spec`) and commits each
+slot's accepted prefix, so the streams equal one-token decode's under all
+four uniform layouts (a recurrent family raises the reference's
+``ValueError``).  Everything else raises ``NotImplementedError`` rather
+than being ignored: sampled requests (``temperature > 0``), the generic
+int8 composition and the paged one over KV leaves (other families,
+streaming prefill), ``prefill_chunk > 0``, and prefill/decode engine
+roles (``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
@@ -101,6 +107,41 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
 
 
+def ngram_draft(history, need: int, lookback: int = 64) -> List[int]:
+    """Self-speculative n-gram draft (prompt-lookup style): propose up to
+    ``need`` continuation tokens by matching the tail of ``history``
+    (prompt + generated so far) against its own recent past -- bigram match
+    first, unigram fallback, empty when nothing recurs.  ``lookback``
+    bounds the backward scan so drafting stays O(1) per step."""
+    if need <= 0 or len(history) < 2:
+        return []
+
+    def match_once(h, want):
+        for width in (2, 1):
+            if len(h) <= width:
+                continue
+            pat = h[-width:]
+            start = max(0, len(h) - 1 - lookback)
+            for i in range(len(h) - 1 - width, start - 1, -1):
+                if h[i:i + width] == pat:
+                    cont = h[i + width:i + width + want]
+                    if cont:
+                        return [int(t) for t in cont]
+        return []
+
+    # a match near the tail (a run "... x x x") yields a continuation cut
+    # by the end of history: re-matching against history + draft so far
+    # fills the budget, so runs and short cycles draft the full need
+    h, out = list(history), []
+    while len(out) < need:
+        step = match_once(h, need - len(out))
+        if not step:
+            break
+        out.extend(step)
+        h.extend(step)
+    return out
+
+
 class AdmissionQueue:
     """Two-level SLO-priority admission queue (interactive > batch).
 
@@ -141,8 +182,18 @@ class AdmissionQueue:
 class SlotBackend:
     """A model behind the slot protocol: ``init_slots`` (slot-indexed state),
     ``prefill`` (one request's prompt into one slot, returning that slot's
-    last-position logits) and ``decode`` (one token for every slot).  The
-    state is updated in place on ``device``."""
+    last-position logits), ``decode`` (one token for every slot) and, for
+    a backend with a speculative path, ``decode_spec`` (a k-row verify
+    for every slot: tokens (n_slots, k) on the device -- row 0 the last
+    committed token, rows 1.. self-drafted -- and q_lens (n_slots,) live
+    rows, verified greedily in one pass; it returns (logits
+    (n_slots, k, V), accepts (n_slots,), committed cache)).  The state is
+    updated in place on ``device``."""
+
+    # verify rows a step, stamped by a speculative engine before
+    # init_slots (the JAX package sizes ring caches by it; the uniform
+    # family's linear caches need no margin)
+    spec_k = 1
 
     def __init__(self, cfg, params, ctx: Optional[tf.ModelCtx] = None,
                  decode_impl: Optional[str] = None, device=None):
@@ -197,6 +248,11 @@ class NativeBackend(SlotBackend):
     def _decode_impl(self, params, cache, tokens):
         return tf.decode_step(self.cfg, params, cache, tokens, self.ctx)
 
+    @torch.inference_mode()
+    def decode_spec(self, cache: Dict, tokens, q_lens):
+        return tf.decode_spec(self.cfg, self.params, cache, tokens,
+                              self.ctx, q_lens=q_lens)
+
     def _prefill_impl(self, params, cache, tokens, true_len, slot):
         return tf.prefill_into_slot(self.cfg, params, cache, tokens,
                                     true_len, slot, self.ctx)
@@ -220,6 +276,11 @@ class Int8KVBackend(SlotBackend):
     def _decode_impl(self, params, cache, tokens):
         return kvquant.quant_decode_step(self.cfg, params, cache, tokens,
                                          self.ctx)
+
+    @torch.inference_mode()
+    def decode_spec(self, cache: Dict, tokens, q_lens):
+        return kvquant.quant_decode_spec(self.cfg, self.params, cache,
+                                         tokens, self.ctx, q_lens=q_lens)
 
     def _prefill_impl(self, params, cache, tokens, true_len, slot):
         logits, quant = kvquant.quant_prefill_kv(
@@ -279,6 +340,11 @@ class PagedNativeBackend(_PagedBackendMixin, SlotBackend):
     def _decode_impl(self, params, cache, tokens):
         return tf.decode_step(self.cfg, params, cache, tokens, self.ctx)
 
+    @torch.inference_mode()
+    def decode_spec(self, cache: Dict, tokens, q_lens):
+        return tf.decode_spec(self.cfg, self.params, cache, tokens,
+                              self.ctx, q_lens=q_lens)
+
     def _prefill_impl(self, params, cache, tokens, true_len, slot):
         return tf.prefill_into_slot(self.cfg, params, cache, tokens,
                                     true_len, slot, self.ctx)
@@ -306,6 +372,11 @@ class PagedInt8Backend(_PagedBackendMixin, SlotBackend):
     def _decode_impl(self, params, cache, tokens):
         return kvquant.quant_decode_step(self.cfg, params, cache, tokens,
                                          self.ctx)
+
+    @torch.inference_mode()
+    def decode_spec(self, cache: Dict, tokens, q_lens):
+        return kvquant.quant_decode_spec(self.cfg, self.params, cache,
+                                         tokens, self.ctx, q_lens=q_lens)
 
     def _prefill_impl(self, params, cache, tokens, true_len, slot):
         logits, quant = kvquant.quant_prefill_kv(
@@ -407,15 +478,27 @@ class ServingEngine:
                  role: str = "both", cf_head=None):
         if role != "both":
             raise _not_ported(f"engine role {role!r}")
-        if ecfg.spec_k > 1:
-            fam = backend.family
-            if fam not in tf.SPEC_FAMILIES:
+        # speculative decode: k rows verified per scheduler step
+        self.spec_k = max(1, int(ecfg.spec_k))
+        if self.spec_k > 1:
+            if ecfg.spec_draft != "ngram":
                 raise ValueError(
-                    f"speculative decode (spec_k={ecfg.spec_k}) needs a "
+                    f"unknown spec_draft {ecfg.spec_draft!r}; the engine "
+                    "is self-speculative (draft='ngram', no second model)")
+            fam = getattr(backend, "family", None)
+            if fam is not None and fam not in tf.SPEC_FAMILIES:
+                raise ValueError(
+                    f"speculative decode (spec_k={self.spec_k}) needs a "
                     f"pure-KV cache family {tf.SPEC_FAMILIES}; {fam!r} "
                     "carries recurrent per-token state that cannot rewind "
                     "a rejected draft — serve it with spec_k=1")
-            raise _not_ported("speculative decode (spec_k > 1)")
+            if not callable(getattr(backend, "decode_spec", None)):
+                raise ValueError(
+                    f"{type(backend).__name__} has no speculative decode "
+                    "path; serve it with spec_k=1")
+            # stamped before init_slots; max() keeps a shared backend's
+            # state large enough for every engine using it
+            backend.spec_k = max(getattr(backend, "spec_k", 1), self.spec_k)
         if ecfg.prefill_chunk:
             raise _not_ported("streaming (chunked) prefill")
         self.backend, self.ecfg = backend, ecfg
@@ -470,6 +553,11 @@ class ServingEngine:
         self._slot_len = np.zeros(n, np.int64)
         self.max_concurrent = 0
         self._kv_bytes_sum = 0.0
+        # speculative accounting: tokens emitted by decode steps over live
+        # slot-steps (one-token decode == exactly 1.0), and verify rows run
+        self.spec_tokens = 0
+        self.spec_slot_steps = 0
+        self.spec_rows = 0
         # recsys serving: requests carrying a candidate set are scored by
         # the CF head at prefill, inside the req.prefill span
         self.cf_head = cf_head
@@ -726,6 +814,8 @@ class ServingEngine:
             self.win.observe_tpot(rec.tpot)
 
     def _decode_once(self) -> None:
+        if self.spec_k > 1:
+            return self._spec_decode_once()
         if self.tables is not None:
             # make every active slot's KV frontier exclusively owned before
             # the step writes there: COW off shared tails, claim sole-owner
@@ -781,6 +871,114 @@ class ServingEngine:
                 self._note_finish(rec)
         self._note_load()
 
+    def _spec_decode_once(self) -> None:
+        """One speculative scheduler step: self-draft up to ``spec_k - 1``
+        continuation tokens per greedy slot, verify all rows in one k-row
+        decode, commit each slot's accepted prefix.  Greedy verification
+        accepts exactly the prefix row-by-row decode would emit, so the
+        streams equal one-token decode's.  A sampled slot would draft
+        nothing (``submit`` refuses sampled requests for now)."""
+        n, k = self.ecfg.n_slots, self.spec_k
+        rows = np.full((n, k), self.ecfg.pad_id, np.int64)
+        rows[:, 0] = self.slot_tokens[:, 0]
+        q_lens = np.ones(n, np.int64)
+        for s in range(n):
+            req = self.slot_req[s]
+            if req is None:
+                continue
+            # draft cap: the step writes q_len KV rows at len..len+q_len-1
+            # (must fit max_len) and can emit at most the slot's remaining
+            # budget
+            cap = min(k - 1, int(self.slot_remaining[s]) - 1,
+                      self.ecfg.max_len - 1 - int(self._slot_len[s]))
+            if req.temperature > 0.0:
+                cap = 0
+            if cap > 0:
+                draft = ngram_draft(
+                    list(req.prompt) + self.outputs[req.rid], cap)
+                rows[s, 1:1 + len(draft)] = draft
+                q_lens[s] = 1 + len(draft)
+        # the smallest power-of-two row count covering the longest draft
+        # (1, 2, ... up to spec_k): short-draft steps pay near one-row cost
+        k_step = 1
+        while k_step < int(q_lens.max()):
+            k_step *= 2
+        k_step = min(k_step, k)
+        if self.tables is not None:
+            # own the whole write span up front: one pass per touched block
+            for s in range(n):
+                if self.slot_req[s] is None:
+                    continue
+                for src, dst in self.tables.ensure_writable_span(
+                        s, int(self._slot_len[s]), int(q_lens[s])):
+                    self.cache = self.backend.copy_block(self.cache,
+                                                         src, dst)
+                    self.tracer.instant("pool.cow", track="pool", slot=s,
+                                        src=src, dst=dst)
+            self._sync_tables()
+        # one upload for the rows and q_lens (the last column), before the
+        # timed call: the clock prices the model step, not the handoff
+        packed = torch.as_tensor(
+            np.concatenate([rows[:, :k_step], q_lens[:, None]], axis=1),
+            device=self.backend.device)
+        step_t0 = self.clock.now
+        step_args = self._decode_model_args() if self.tracer.enabled else None
+        live_rows = int(q_lens[[s for s in range(n)
+                                if self.slot_req[s] is not None]].sum())
+        if step_args:
+            # FLOPs scale with the live rows; attn_read_bytes stays the
+            # one-token figure (the cache streams once a step)
+            step_args["model_flops"] *= live_rows / step_args["n_active"]
+            step_args["spec_q_rows"] = live_rows
+        logits, accepts_dev, self.cache = self._timed(
+            self.clock.fixed_decode_s,
+            lambda: self.backend.decode_spec(self.cache, packed[:, :-1],
+                                             packed[:, -1]))
+        self.decode_steps += 1
+        self._kv_bytes_sum += self._resident_kv_bytes()
+        # one device-to-host copy: every row's greedy token, then accepts
+        host = torch.cat([torch.argmax(logits, dim=-1),
+                          accepts_dev[:, None].long()], dim=1).cpu().numpy()
+        emitted, accepts = host[:, :-1], host[:, -1]
+        self._tokens_dirty = True       # the host builds the next drafts
+        step_emitted = 0
+        self.spec_slot_steps += sum(r is not None for r in self.slot_req)
+        self.spec_rows += live_rows
+        for s in range(n):
+            req, rec = self.slot_req[s], self.slot_rec[s]
+            if req is None:
+                continue
+            a = int(accepts[s])
+            toks = [int(t) for t in emitted[s, :a]]
+            # stop at the first EOS (the device cache over-commits the rows
+            # behind it, but a finishing slot's state is discarded)
+            eos_at = next((j for j, t in enumerate(toks)
+                           if t == req.eos_id), None)
+            if eos_at is not None:
+                toks = toks[:eos_at + 1]
+            self.outputs[req.rid].extend(toks)
+            rec.tokens_out += len(toks)
+            step_emitted += len(toks)
+            self.slot_remaining[s] -= len(toks)
+            self._slot_len[s] += a          # device KV frontier: accepts
+            self.slot_tokens[s, 0] = toks[-1]
+            if eos_at is not None or self.slot_remaining[s] <= 0:
+                rec.finished = self.clock.now
+                self.slot_req[s] = None
+                self.slot_rec[s] = None
+                if self.tables is not None:
+                    self.tables.release(s)
+                self._trace_request(rec, s)
+                self._note_finish(rec)
+        self._note_load()
+        self.spec_tokens += step_emitted
+        if step_args is not None:
+            self.tracer.complete("decode_step", step_t0, self.clock.now,
+                                 track="engine", step=self.decode_steps - 1,
+                                 tokens_emitted=step_emitted, **step_args)
+        if self.metrics is not None:
+            self.metrics.counter("engine.spec_tokens").inc(step_emitted)
+
     # -- run loop ------------------------------------------------------------
 
     def run(self, requests: Sequence[Request]):
@@ -809,6 +1007,18 @@ class ServingEngine:
         summary["max_concurrent_slots"] = self.max_concurrent
         summary["kv_bytes_per_step"] = (
             self._kv_bytes_sum / max(self.decode_steps, 1))
+        if self.spec_k > 1:
+            summary["spec"] = {
+                "k": self.spec_k,
+                "draft": self.ecfg.spec_draft,
+                "spec_tokens": self.spec_tokens,
+                # per live slot-step: one-token decode == 1.0
+                "accepted_tokens_per_step": (
+                    self.spec_tokens / max(self.spec_slot_steps, 1)),
+                # verify rows run per live slot-step (1 + mean draft)
+                "verify_rows_per_step": (
+                    self.spec_rows / max(self.spec_slot_steps, 1)),
+            }
         if self.cf_head is not None:
             summary["cf"] = self.cf_head.summary()
             summary["cf"]["requests_scored_here"] = self.cf_scored

@@ -117,17 +117,21 @@ def test_layouts_match_jax_under_pinned_clock(model, layout, impl):
 
 
 def test_outside_the_slice_raises(model):
-    """Paged and int8 layouts, the CF head and the metrics registry are
-    served now; sampled decode, speculative decode, streaming prefill
-    (alone or through the int8/paged compositions) and engine roles still
-    raise, naming ROADMAP.md."""
+    """Paged and int8 layouts, speculative decode, the CF head and the
+    metrics registry are served now; sampled decode (with or without
+    speculation), streaming prefill (alone or through the int8/paged
+    compositions) and engine roles still raise, naming ROADMAP.md."""
     _, _, tcfg, tparams = model
     reqs = ttraffic.generate(ttraffic.TrafficConfig(**TRAFFIC))
     sampled = [dataclasses.replace(reqs[0], temperature=0.7)]
-    with pytest.raises(NotImplementedError, match="sampled"):
-        teng.serve(tcfg, tparams, sampled, device="cpu")
-    for ecfg in (teng.EngineConfig(spec_k=2),
-                 teng.EngineConfig(prefill_chunk=8),
+    for ecfg in (teng.EngineConfig(), teng.EngineConfig(spec_k=2)):
+        with pytest.raises(NotImplementedError, match="sampled"):
+            teng.serve(tcfg, tparams, sampled, ecfg, device="cpu")
+    _, _, summary = teng.serve(
+        tcfg, tparams, reqs, teng.EngineConfig(max_len=32, spec_k=2),
+        device="cpu")
+    assert summary["finished"] == len(reqs) and summary["spec"]["k"] == 2
+    for ecfg in (teng.EngineConfig(prefill_chunk=8),
                  teng.EngineConfig(prefill_chunk=8,
                                    layout=CacheLayout(kind="paged")),
                  teng.EngineConfig(prefill_chunk=8,
